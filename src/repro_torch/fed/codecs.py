@@ -1,0 +1,180 @@
+"""Pluggable upload-payload codecs (port of ``repro.fed.codecs``).
+
+A codec answers two questions:
+
+  * ``wire_bytes(n_floats)`` — the uplink bytes of an ``n_floats``-element
+    payload, the single number CommLedger metering consumes, so
+    "ledger == plan" holds under every codec;
+  * ``roundtrip(tree, generator, residual)`` — what the server receives
+    after encode+decode, and the residual the client keeps.
+
+Registered here: ``none`` (float32 passthrough) and ``int8`` (per-tensor
+symmetric int8 with stochastic rounding, through the CUDA kernel on CUDA
+tensors).  The reference's ``topk:r`` and ``randk:r`` sparsifiers are not
+ported yet: ``make("topk:0.1")`` raises the unknown-codec error.
+
+    @register("fp16")
+    class Fp16Codec(PayloadCodec):
+        ...
+"""
+from __future__ import annotations
+
+import abc
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.fed import comm
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+
+class PayloadCodec(abc.ABC):
+    """One upload wire format: byte accounting + the lossy round-trip.
+    Codecs are stateless; per-client state (a residual) lives with the
+    caller."""
+
+    name: str = ""            # filled in by ``register``
+    sparsifying: bool = False  # zeroes coordinates -> needs summable payloads
+    # CUDA kernel knob for the encode loop ("auto" | "on" | "off", see
+    # kernels.ops.resolve); ``make(spec, kernels=...)`` sets it per instance
+    kernels: str = "auto"
+
+    @property
+    def identity(self) -> bool:
+        """True if the round-trip is lossless passthrough (skip the work)."""
+        return False
+
+    @abc.abstractmethod
+    def wire_bytes(self, n_floats: float) -> float:
+        """Uplink bytes for an ``n_floats``-element payload."""
+
+    @abc.abstractmethod
+    def roundtrip(self, tree, generator: torch.Generator, residual=None):
+        """-> (received_tree, new_residual); ``generator`` (on the
+        payload's device) supplies any random draws."""
+
+    def spec(self) -> str:
+        """The ``FedConfig.compress`` string that reconstructs this codec."""
+        return self.name
+
+
+class NoneCodec(PayloadCodec):
+    """Uncompressed float32 uploads."""
+
+    @property
+    def identity(self) -> bool:
+        return True
+
+    def wire_bytes(self, n_floats: float) -> float:
+        return float(n_floats) * comm.BYTES_F32
+
+    def roundtrip(self, tree, generator, residual=None):
+        return tree, None
+
+
+def quantize_tree(tree, generator: torch.Generator):
+    """-> (int8 tree, scales tree); unbiased stochastic rounding.  Draws
+    one ``torch.rand`` per leaf in leaf order — the stream
+    ``Int8Codec.roundtrip`` consumes, so the two agree bit for bit."""
+    q_leaves, scales = [], []
+    for leaf in tree_leaves(tree):
+        u = torch.rand(leaf.shape, generator=generator, device=leaf.device)
+        scale = kernel_ref.int8_scale(leaf)
+        q_leaves.append(kernel_ref.int8_quantize(leaf, u, scale).to(torch.int8))
+        scales.append(scale)
+    return tree_unflatten(tree, q_leaves), tree_unflatten(tree, scales)
+
+
+def dequantize_tree(q_tree, scales):
+    return tree_map(lambda q, s: q.float() * s, q_tree, scales)
+
+
+class Int8Codec(PayloadCodec):
+    """Per-tensor symmetric int8 with stochastic rounding: 4x fewer upload
+    bytes, unbiased per round, no residual.  One ``torch.rand`` draw per
+    leaf in leaf order; the round-trip runs the CUDA kernel on CUDA tensors
+    (``kernels.ops.int8_roundtrip``)."""
+
+    def wire_bytes(self, n_floats: float) -> float:
+        return float(n_floats) * comm.BYTES_INT8
+
+    def roundtrip(self, tree, generator, residual=None):
+        out = [kernel_ops.int8_roundtrip(leaf, generator, mode=self.kernels)
+               for leaf in tree_leaves(tree)]
+        return tree_unflatten(tree, out), None
+
+
+# ---------------------------------------------------------------------------
+# Registry (mirrors repro_torch.fed.strategies)
+# ---------------------------------------------------------------------------
+_REGISTRY: dict[str, Callable[..., PayloadCodec]] = {}
+
+
+def register(name: str, factory: Optional[Callable[..., PayloadCodec]] = None):
+    """Register ``factory([param]) -> PayloadCodec`` under ``name``.
+    Usable as a decorator on a codec class or called directly."""
+
+    def _do(f):
+        try:
+            f.name = name
+        except (AttributeError, TypeError):
+            pass
+        _REGISTRY[name] = f
+        return f
+
+    return _do if factory is None else _do(factory)
+
+
+def get(name: str) -> Callable[..., PayloadCodec]:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown payload codec {name!r}; known: {names()}")
+    return _REGISTRY[name]
+
+
+def names() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def make(spec: str | PayloadCodec,
+         kernels: Optional[str] = None) -> PayloadCodec:
+    """Build a codec from a ``FedConfig.compress`` spec: a PayloadCodec
+    instance (returned as-is) or a ``"name"`` / ``"name:param"`` string.
+    ``kernels`` ("auto" | "on" | "off") sets the encode kernel knob; None
+    keeps the class default ("auto")."""
+    if isinstance(spec, PayloadCodec):
+        codec = spec
+    else:
+        if not isinstance(spec, str):
+            raise ValueError(
+                f"codec spec must be a string or PayloadCodec, got {spec!r}")
+        name, _, arg = spec.partition(":")
+        factory = get(name)
+        try:
+            codec = factory(float(arg)) if arg else factory()
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"bad codec spec {spec!r}: {e}") from None
+    if kernels is not None:
+        if kernels not in kernel_ops.MODES:
+            raise ValueError(
+                f"codec kernels mode must be one of {kernel_ops.MODES}, "
+                f"got {kernels!r}")
+        codec.kernels = kernels
+    return codec
+
+
+def achieved_ratio(codec: PayloadCodec, n_floats: float) -> float:
+    """``wire_bytes / raw float32 bytes`` (1.0 = uncompressed; an empty
+    payload is 1.0 by convention)."""
+    raw = float(n_floats) * comm.BYTES_F32
+    if raw <= 0:
+        return 1.0
+    return float(codec.wire_bytes(n_floats)) / raw
+
+
+register("none", NoneCodec)
+register("int8", Int8Codec)
+
+# the shared passthrough instance: the default wire format of a PhasePlan
+NONE = NoneCodec()

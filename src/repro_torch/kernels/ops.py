@@ -1,0 +1,71 @@
+"""Dispatch between the hand-written CUDA kernels and their plain
+PyTorch versions.
+
+Every wrapper takes the reference's ``mode`` knob (``FedConfig.kernels``)
+and picks the path by the device of the tensor it is given:
+
+  ============  ===================  ===================  ============
+  tensor        ``"auto"``           ``"on"``             ``"off"``
+  ============  ===================  ===================  ============
+  CUDA          hand-written kernel  hand-written kernel  plain
+  CPU           plain                ValueError           plain
+  ============  ===================  ===================  ============
+
+A CUDA tensor under ``"auto"``/``"on"`` launches the kernel or raises: a
+build or launch failure is never caught to fall back to the plain
+version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import codec_ops as _codec
+from repro_torch.kernels import fim_diag as _fim
+from repro_torch.kernels import ref
+from repro_torch.kernels import vlbfgs as _vl
+
+MODES = ("auto", "on", "off")
+
+
+def resolve(mode: str, device) -> str:
+    """-> "kernel" | "plain" for a tensor on ``device``."""
+    if mode not in MODES:
+        raise ValueError(f"kernels mode must be one of {MODES}, got {mode!r}")
+    if mode == "off":
+        return "plain"
+    if torch.device(device).type == "cuda":
+        return "kernel"
+    if mode == "on":
+        raise ValueError(
+            f"kernels='on' needs a CUDA tensor: there is no hand-written "
+            f"kernel for device {torch.device(device).type!r}")
+    return "plain"
+
+
+def fim_diag_update(grads, old_diag, ema: float, mode: str = "auto"):
+    """Fused Γ update: ema*old + (1-ema)*mean_b g².  grads: (B, D)."""
+    if resolve(mode, grads.device) == "plain":
+        return ref.fim_diag_ref(grads, old_diag, ema)
+    return _fim.fim_diag(grads, old_diag, ema)
+
+
+def vlbfgs_gram(basis, mode: str = "auto"):
+    """(2m+1, D) basis -> (2m+1, 2m+1) Gram matrix."""
+    if resolve(mode, basis.device) == "plain":
+        return ref.vlbfgs_gram_ref(basis)
+    return _vl.gram(basis)
+
+
+def int8_roundtrip(x, generator: torch.Generator, mode: str = "auto"):
+    """Int8 stochastic-rounding quantize+dequantize of one payload tensor.
+
+    Draws the rounding uniforms from ``generator`` the same way on every
+    path, and computes the scale once for both, so kernel and plain
+    version round identically (bit for bit)."""
+    if x.numel() == 0:
+        return x.float()
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    scale = ref.int8_scale(x)
+    if resolve(mode, x.device) == "plain":
+        return ref.int8_roundtrip_ref(x, u, scale)
+    return _codec.int8_roundtrip(x.float().contiguous(), u, scale)

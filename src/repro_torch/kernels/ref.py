@@ -1,0 +1,53 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They run for CPU tensors, under ``kernels="off"``, and in ``chip_smoke.py``
+as the reference each CUDA kernel is held against.  Each restates the
+matching oracle of ``repro.kernels.ref``; the int8 pair is bit-identical
+to it given the same ``x`` and ``u``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fim_diag_ref(grads: torch.Tensor, old_diag: torch.Tensor,
+                 ema: float) -> torch.Tensor:
+    """grads: (B, D) per-example (or per-microbatch) gradients;
+    old_diag: (D,) f32 EMA state.  Returns ema*old + (1-ema)*mean(g²)."""
+    meansq = torch.mean(torch.square(grads.float()), dim=0)
+    return ema * old_diag.float() + (1.0 - ema) * meansq
+
+
+def vlbfgs_gram_ref(basis: torch.Tensor) -> torch.Tensor:
+    """basis: (n, D) rows [s_0..s_{m-1}, y_0..y_{m-1}, g].
+    Returns the (n, n) Gram matrix in f32."""
+    b = basis.float()
+    return b @ b.T
+
+
+def int8_scale(x: torch.Tensor) -> torch.Tensor:
+    """max|x|/127 (floored at 1e-12/127 for all-zero tensors), as a 0-d
+    f32 tensor on x's device.
+
+    The divisor is a device tensor on purpose: PyTorch's CUDA division by
+    a Python scalar multiplies by the f32 reciprocal, which is not the
+    correctly rounded quotient the reference (and numpy) computes."""
+    amax = torch.clamp_min(torch.amax(torch.abs(x.float())), 1e-12)
+    return amax / torch.full((), 127.0, dtype=torch.float32, device=x.device)
+
+
+def int8_quantize(x: torch.Tensor, u: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """The int8 levels as integral f32 values in [-127, 127]:
+    clip(floor(x/s) + (u < x/s - floor(x/s)), -127, 127)."""
+    q = x.float() / scale
+    lo = torch.floor(q)
+    rnd = lo + (u.float() < (q - lo)).float()
+    return torch.clamp(rnd, -127.0, 127.0)
+
+
+def int8_roundtrip_ref(x: torch.Tensor, u: torch.Tensor,
+                       scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-tensor symmetric int8 with stochastic rounding, dequantized."""
+    s = int8_scale(x) if scale is None else scale
+    return int8_quantize(x, u, s) * s

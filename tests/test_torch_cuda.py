@@ -1,0 +1,84 @@
+"""Each hand-written CUDA kernel against its plain PyTorch version, on the
+card.  Marked ``cuda``: on a host without a CUDA device every test skips
+with the reason.  This file imports neither JAX nor the reference, so it
+runs on a GPU host that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: fim_diag and the Gram sum in other orders than the plain
+versions (f32 accumulation), so 1e-5 relative (the Gram relative to its
+largest entry, against an f64 plain product); int8 is bit-identical.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import codec_ops, fim_diag, ops, ref, vlbfgs  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("B,D", [(8, 256), (5, 131), (300, 3000),
+                                 (257, 2049), (600, 200_704)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fim_diag_kernel_matches_plain(cuda, B, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    g = torch.randn((B, D), generator=gen, device=cuda).to(getattr(torch, dtype))
+    old = torch.rand((D,), generator=gen, device=cuda)
+    before = fim_diag.LAUNCHES
+    got = ops.fim_diag_update(g, old, 0.9, mode="on")
+    assert fim_diag.LAUNCHES == before + 1
+    torch.testing.assert_close(got, ref.fim_diag_ref(g, old, 0.9),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,D", [(5, 512), (21, 4096), (21, 10_001), (9, 64),
+                                 (9, 12_300), (21, 206_922), (64, 5000),
+                                 (1, 1)])
+def test_gram_kernel_matches_plain(cuda, n, D):
+    gen = torch.Generator(device=cuda).manual_seed(n + D)
+    basis = torch.randn((n, D), generator=gen, device=cuda)
+    before = vlbfgs.LAUNCHES
+    got = ops.vlbfgs_gram(basis, mode="on")
+    assert vlbfgs.LAUNCHES == before + 1
+    want = ref.vlbfgs_gram_ref(basis.double()).float()
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("shape", [(7,), (1000,), (33, 129), (300, 17),
+                                   (3, 3, 16, 32), (6272, 128)])
+def test_int8_kernel_bit_identical_to_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(int(np.prod(shape)))
+    x = torch.randn(shape, generator=gen, device=cuda) * 3.0
+    u = torch.rand(shape, generator=gen, device=cuda)
+    s = ref.int8_scale(x)
+    assert float(s) == float(np.float32(float(x.abs().max())) / np.float32(127))
+    before = codec_ops.LAUNCHES
+    got = codec_ops.int8_roundtrip(x, u, s)
+    assert codec_ops.LAUNCHES == before + 1
+    want = ref.int8_roundtrip_ref(x, u, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError):
+        fim_diag.fim_diag(torch.zeros((4, 8), device=cuda, dtype=torch.float16),
+                          torch.zeros(8, device=cuda), 0.0)
+    with pytest.raises(ValueError):
+        vlbfgs.gram(torch.zeros((65, 8), device=cuda))
+    with pytest.raises(ValueError):
+        codec_ops.int8_roundtrip(torch.zeros(4, device=cuda),
+                                 torch.zeros(5, device=cuda),
+                                 torch.ones((), device=cuda))

@@ -1,0 +1,146 @@
+"""The port's kernel layer: plain versions against the reference's oracles
+on the CPU, and the device/mode dispatch table.  The hand-written CUDA
+kernels themselves are held against these plain versions on the card by
+``tests/test_torch_cuda.py``.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances follow ``tests/test_kernels.py``: fim_diag 1e-5 (f32) / 5e-2
+(bf16, 8-bit mantissa inputs), Gram 1e-5 relative to its largest entry;
+the int8 round-trip and its scale are exact (bit-identical).
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import codec_ops as rcodec  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro_torch.kernels import codec_ops, fim_diag, ops, ref, vlbfgs  # noqa: E402
+
+FIM_SHAPES = [(8, 256), (64, 1000), (256, 4096), (5, 131), (300, 3000),
+              (300, 5000), (257, 2049)]
+GRAM_SHAPES = [(5, 512), (21, 4096), (21, 10_001), (9, 64), (9, 12_300)]
+INT8_SHAPES = [(7,), (1000,), (33, 129), (4096,), (300, 17), (3, 3, 16, 16)]
+
+
+# ------------------------------------------------------ plain vs reference
+@pytest.mark.parametrize("B,D", FIM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fim_diag_plain_matches_reference(B, D, dtype):
+    rng = np.random.default_rng(B * D)
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    old = rng.uniform(size=D).astype(np.float32)
+    if dtype == "bfloat16":
+        g_np = g.astype(ml_dtypes.bfloat16)
+        g_t = torch.from_numpy(g_np.astype(np.float32)).to(torch.bfloat16)
+        tol = 5e-2
+    else:
+        g_np, g_t, tol = g, torch.from_numpy(g), 1e-5
+    want = np.asarray(rops.fim_diag_update(jnp.asarray(g_np), jnp.asarray(old),
+                                           0.9, force_kernel=True))
+    got = ops.fim_diag_update(g_t, torch.from_numpy(old), 0.9).numpy()
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n,D", GRAM_SHAPES)
+def test_gram_plain_matches_reference(n, D):
+    basis = np.random.default_rng(n + D).normal(size=(n, D)).astype(np.float32)
+    want = np.asarray(rops.vlbfgs_gram(jnp.asarray(basis), force_kernel=True))
+    got = ops.vlbfgs_gram(torch.from_numpy(basis)).numpy()
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_plain_bit_identical_to_reference(shape):
+    rng = np.random.default_rng(int(np.prod(shape)))
+    x = (rng.normal(size=shape) * 3.0).astype(np.float32)
+    u = rng.uniform(size=shape).astype(np.float32)
+    r_scale = rref.int8_scale(jnp.asarray(x))
+    p_scale = ref.int8_scale(torch.from_numpy(x))
+    # the scale: correctly rounded max|x| / 127, as numpy computes it
+    assert np.float32(p_scale.numpy()) == np.float32(np.asarray(r_scale))
+    assert np.float32(p_scale.numpy()) == np.abs(x).max() / np.float32(127)
+    want = np.asarray(rcodec.int8_roundtrip(jnp.asarray(x), jnp.asarray(u),
+                                            r_scale, interpret=True))
+    got = ref.int8_roundtrip_ref(torch.from_numpy(x), torch.from_numpy(u),
+                                 p_scale).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_int8_scale_bit_identical_on_many_magnitudes():
+    """One division per tensor, over 20k magnitudes spanning 1e-30..1e30:
+    a multiply by the f32 reciprocal of 127 would miss some of them."""
+    rng = np.random.default_rng(0)
+    mags = (10.0 ** rng.uniform(-30, 30, size=20_000)).astype(np.float32)
+    want = np.maximum(mags, np.float32(1e-12)) / np.float32(127)
+    got = np.array([float(ref.int8_scale(torch.tensor([m, -m / 2])))
+                    for m in mags[:2000]], np.float32)
+    np.testing.assert_array_equal(got, want[:2000])
+    # the same expression elementwise over all of them
+    x = torch.from_numpy(mags)
+    vec = torch.clamp_min(x, 1e-12) / torch.full((), 127.0)
+    np.testing.assert_array_equal(vec.numpy(), want)
+
+
+def test_int8_scale_of_all_zero_tensor():
+    z = torch.zeros(5)
+    assert float(ref.int8_scale(z)) == float(rref.int8_scale(jnp.zeros(5)))
+    assert torch.equal(ref.int8_roundtrip_ref(z, torch.rand(5)), z)
+
+
+# --------------------------------------------------------------- dispatch
+def test_resolve_table_on_cpu():
+    assert ops.resolve("auto", "cpu") == "plain"
+    assert ops.resolve("off", "cpu") == "plain"
+    assert ops.resolve("auto", "cuda") == "kernel"
+    assert ops.resolve("on", "cuda") == "kernel"
+    assert ops.resolve("off", "cuda") == "plain"
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        ops.resolve("on", "cpu")
+    with pytest.raises(ValueError, match="kernels mode"):
+        ops.resolve("sometimes", "cpu")
+
+
+def test_on_with_cpu_tensors_raises_everywhere():
+    g = torch.zeros((4, 8))
+    with pytest.raises(ValueError):
+        ops.fim_diag_update(g, torch.zeros(8), 0.0, mode="on")
+    with pytest.raises(ValueError):
+        ops.vlbfgs_gram(torch.zeros((3, 8)), mode="on")
+    with pytest.raises(ValueError):
+        ops.int8_roundtrip(torch.ones(8), torch.Generator(), mode="on")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches on CUDA tensors only; it never runs the plain
+    version itself."""
+    with pytest.raises(ValueError, match="CUDA"):
+        fim_diag.fim_diag(torch.zeros((2, 3)), torch.zeros(3), 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        vlbfgs.gram(torch.zeros((3, 5)))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_ops.int8_roundtrip(torch.zeros(3), torch.zeros(3),
+                                 torch.ones(()))
+
+
+def test_int8_modes_agree_and_draw_the_same_stream():
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=257)
+                         .astype(np.float32))
+    outs = [ops.int8_roundtrip(x, torch.Generator().manual_seed(3), mode=m)
+            for m in ("auto", "off")]
+    assert torch.equal(outs[0], outs[1])
+    u = torch.rand(x.shape, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(outs[0], ref.int8_roundtrip_ref(x, u, ref.int8_scale(x)))
+
+
+def test_gram_split_covers_d_with_enough_blocks():
+    for D in (1, 63, 64, 10_001, 206_922):
+        chunk, blocks = vlbfgs.split(D, 132)
+        assert chunk % vlbfgs.TILE == 0
+        assert chunk * blocks >= D > chunk * (blocks - 1)
+        if D >= 132 * vlbfgs.TILE:
+            assert blocks >= 132
