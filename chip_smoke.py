@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, and drives Algorithm 1
-(``FederatedRun(..., "fim_lbfgs")``) at the full width of the paper's
-F-MNIST CNN through the kernels.
+(``FederatedRun(..., "fim_lbfgs")``), FedAvg and the paper's other
+strategies at the full width of the paper's F-MNIST CNN through the
+kernels.
 
     python3 chip_smoke.py
 
@@ -11,13 +12,17 @@ Phases (any failure raises and exits non-zero):
   1. device: the card's name and power limit, then the kernel build;
   2. each kernel against its plain version at the main path's shapes,
      with CUDA-event times (see ``time_ms``) beside the card's bound;
-  3. the main path: 5 rounds on 60,000 synthetic F-MNIST examples, 100
-     clients, 20 per round, non-IID-2, once with compress="none" and once
-     with "int8"; launch counts, losses and the byte ledger are checked,
-     then, for each, one more round with kernels="off" beside
-     kernels="auto" from the same state, holding every part of the
-     strategy's state after it; last the split of a round's time between
-     the client step, the int8 round-trip and the server step;
+  3. the main paths, each 5 rounds on 60,000 synthetic F-MNIST examples,
+     100 clients, 20 per round, non-IID-2: fim_lbfgs under
+     compress="none", "int8" and "topk:0.1", and fedavg_sgd under
+     "topk:0.1" (per-client error feedback); launch counts, losses and the
+     byte ledger are checked, and under top-k the error-feedback identity
+     on one client; then, for each, one more round with kernels="off"
+     beside kernels="auto" from the same state, holding every part of the
+     strategy's state (and the residuals) after it; then 2 rounds of each
+     of fedavg_adam, fedprox, feddane, fedova and fedova_lbfgs under
+     "none"; last the split of a round's time between the client step,
+     the codec round-trips and the server step;
   4. one JSON line listing every ported kernel, then the result line.
 
 Needs CUDA: without it the script exits 2 and prints no result.  It
@@ -47,11 +52,13 @@ from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag, ops, ref,  # noqa: E402
                                  vlbfgs)
 from repro_torch.models import cnn  # noqa: E402
-from repro_torch.utils.pytree import tree_leaves  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
-# launch counters of the kernel wrappers, by kernel name
-COUNTERS = {"fim_diag": fim_diag, "vlbfgs_gram": vlbfgs,
-            "int8_roundtrip": codec_ops}
+# launch counters of the kernel wrappers, by kernel name: (module, attribute)
+COUNTERS = {"fim_diag": (fim_diag, "LAUNCHES"),
+            "vlbfgs_gram": (vlbfgs, "LAUNCHES"),
+            "int8_roundtrip": (codec_ops, "LAUNCHES"),
+            "topk_select": (codec_ops, "TOPK_LAUNCHES")}
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
 # tensor cores (the kernels use plain f32 FMAs); rates at the 700 W limit
@@ -83,9 +90,38 @@ GRAM_TOL = 1e-5
 FISHER_TOL = 1e-5
 STEP_TOL = 1e-3
 INT8_STATE_TOL = 2e-3
+#   under top-k the select is bit-identical on identical inputs, and its
+#   inputs differ only by the f32 sums above and by cuDNN's unordered
+#   backward sums (~1e-7 relative); a coordinate changes sides of the
+#   threshold only when it lies that close to an edge of the threshold
+#   bucket.  Such a swap moves two coordinates of about the threshold's
+#   magnitude: far below 1e-3 of the params and the history after the
+#   cohort mean, but about 1% of one client's residual.  So params and
+#   history -> 1e-3, residuals -> 1e-3 on the coordinates both runs
+#   treated alike (a sent coordinate leaves a zero residual), and the
+#   swapped coordinates are counted: at most 1e-3 of the k sent, where a
+#   wrong select would differ in thousands
+TOPK_STATE_TOL = 1e-3
+TOPK_SWAP_SHARE = 1e-3
+TOPK = "topk:0.1"
+# FedDANE diverges at the default local lr (0.05) on the full-width CNN
+# with 5 local epochs of batch 15: the reference's own FederatedRun reads
+# NaN losses from round 1 there as well (checked on the CPU at 12,000
+# examples, 20 clients); at lr 0.01 both converge
+STRATEGY_OVERRIDES = {"feddane": {"learning_rate": 0.01}}
 # GPU spin that hides the host's enqueue cost while timing (~10 ms at the
 # H100's ~2 GHz SM clock)
 SLEEP_CYCLES = 20_000_000
+
+
+def reset_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
 
 
 def fail(msg: str) -> None:
@@ -220,6 +256,38 @@ def check_int8(dev, shape):
     return row
 
 
+def check_topk(dev, n, k):
+    """The select on a (g, Γ)-like payload: half gradient-like normals,
+    half small Fisher-like squares.  Bit-identical to the plain version,
+    exactly k kept.  The nearest library call, torch.topk of |x|, is an
+    exact top-k with other ties: timed only as a yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    half = n // 2
+    x = torch.cat([torch.randn((half,), generator=gen, device=dev) * 1e-2,
+                   torch.randn((n - half,), generator=gen, device=dev)
+                   .square() * 1e-4])
+    got = ops.topk_select(x, k, mode="on")
+    want = ref.topk_select_ref(x, k)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    kept = int(torch.count_nonzero(got))
+    err = float((got - want).abs().max())
+    # each input read once and the output written once; integer work only
+    b_ms, by = bound_ms(8.0 * n, 0.0)
+    row = {"kernel": "topk_select", "shape": [n], "k": k, "dtype": "float32",
+           "max_err": err, "tol": 0.0, "kept": kept,
+           **timings(lambda: ops.topk_select(x, k, mode="on"),
+                     lambda: ref.topk_select_ref(x, k),
+                     lambda: torch.topk(x.abs(), k)),
+           "library": "torch.topk(x.abs(), k): nearest library call, exact "
+                      "top-k, different ties",
+           "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(same, f"topk_select n={n} k={k}: not bit-identical (max err {err})")
+    require(kept == k, f"topk_select n={n} k={k}: kept {kept}")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -232,116 +300,242 @@ def expected_ledger(plan, rounds: int, cohort: int) -> dict:
         for ph in plan.phases:
             down += ph.down_floats * 4 * cohort
             up_star += ph.wire_up_bytes() * cohort
-            up_tree += ph.wire_up_bytes() * depth
-        scal += plan.round_scalars * 4
+            up_tree += ph.wire_up_bytes() * (depth if ph.aggregatable
+                                             else cohort)
+        scal += (plan.round_scalars + plan.scalars_per_client * cohort) * 4
     return {"rounds": rounds, "down_MB_per_round": down / rounds / 1e6,
             "up_star_MB_per_round": up_star / rounds / 1e6,
             "up_tree_MB_per_round": up_tree / rounds / 1e6,
             "scalar_KB_per_round": scal / rounds / 1e3}
 
 
-def main_path(train, test, compress: str):
-    for c in COUNTERS.values():
-        c.LAUNCHES = 0
+def expected_launches(alg: str, compress: str, n_leaves: int, rounds: int,
+                      cohort: int) -> dict:
+    """Kernel launches the code of ``alg`` implies for a run without
+    FedOVA (whose counts depend on each client's label set)."""
+    fim = {"fim_lbfgs": n_leaves * cohort * rounds,
+           "feddane": n_leaves * cohort * rounds}.get(alg, 0)
+    return {"fim_diag": fim,
+            "vlbfgs_gram": rounds if alg == "fim_lbfgs" else 0,
+            "int8_roundtrip": (2 * n_leaves * cohort * rounds
+                               if compress == "int8" and alg == "fim_lbfgs"
+                               else 0),
+            "topk_select": cohort * rounds if compress == TOPK else 0}
+
+
+def drive(train, test, alg: str, compress: str, rounds: int, **overrides):
+    """``rounds`` rounds of ``alg`` from fresh counts; -> (run, history,
+    setup seconds, per-round seconds, launches, cohorts)."""
+    reset_counts()
     t0 = time.perf_counter()
-    run = FederatedRun(FMNIST_CNN, FedConfig(compress=compress, **RUN), train,
-                       test, "fim_lbfgs", device="cuda")
+    run = FederatedRun(FMNIST_CNN,
+                       FedConfig(compress=compress, **{**RUN, **overrides}),
+                       train, test, alg, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    cohorts = []
+    sample = run.sample_clients
+
+    def recording():
+        out = sample()
+        cohorts.append([int(c) for c in out])
+        return out
+
+    run.sample_clients = recording
     history, round_s = [], []
-    for t in range(ROUNDS):
+    for t in range(rounds):
         t0 = time.perf_counter()
         info = run.round()
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
         info["round"] = t + 1
         history.append(info)
-    acc = run.evaluate()
-    launches = {name: c.LAUNCHES for name, c in COUNTERS.items()}
+    launches = read_counts()
+    run.sample_clients = sample
+    return run, history, setup_s, round_s, launches, cohorts
+
+
+def check_run(run, history, launches, want, alg, compress, rounds):
     losses = [h["loss"] for h in history]
-    n_leaves = len(tree_leaves(run.params))
-    emit({"phase": "main_path", "compress": compress,
-          "d": run.strategy.n_params(), "leaves": n_leaves,
-          "cohorts": [h["cohort"] for h in history], "losses": losses,
-          "accuracy": acc, "setup_s": setup_s, "round_s": round_s,
-          "launches": launches, "ledger": run.ledger.summary()})
-    require(all(math.isfinite(v) for v in losses), f"{compress}: loss not finite")
-    require(losses[-1] < losses[0],
-            f"{compress}: last loss {losses[-1]} not below first {losses[0]}")
-    require(0.0 <= acc <= 1.0, f"{compress}: accuracy {acc}")
-    require(all(h["cohort"] == COHORT for h in history), "cohort size")
-    want = {"fim_diag": n_leaves * COHORT * ROUNDS, "vlbfgs_gram": ROUNDS,
-            "int8_roundtrip": (2 * n_leaves * COHORT * ROUNDS
-                               if compress == "int8" else 0)}
-    require(launches == want, f"{compress}: launches {launches} != {want}")
-    ledger, plan_ledger = run.ledger.summary(), expected_ledger(run.plan, ROUNDS,
-                                                                COHORT)
+    tag = f"{alg}/{compress}"
+    require(all(math.isfinite(v) for v in losses), f"{tag}: loss not finite")
+    require(all(h["cohort"] == COHORT for h in history), f"{tag}: cohort size")
+    require(launches == want, f"{tag}: launches {launches} != {want}")
+    ledger = run.ledger.summary()
+    plan_ledger = expected_ledger(run.plan, rounds, COHORT)
     require(ledger == plan_ledger,
-            f"{compress}: ledger {ledger} != plan {plan_ledger}")
+            f"{tag}: ledger {ledger} != plan {plan_ledger}")
+    return losses
+
+
+def main_path(train, test, compress: str, alg: str = "fim_lbfgs"):
+    run, history, setup_s, round_s, launches, _ = drive(
+        train, test, alg, compress, ROUNDS)
+    acc = run.evaluate()
+    n_leaves = len(tree_leaves(run.params))
+    want = expected_launches(alg, compress, n_leaves, ROUNDS, COHORT)
+    emit({"phase": "main_path", "algorithm": alg, "compress": compress,
+          "d": run.strategy.n_params(), "leaves": n_leaves,
+          "cohorts": [h["cohort"] for h in history],
+          "losses": [h["loss"] for h in history], "accuracy": acc,
+          "setup_s": setup_s, "round_s": round_s, "launches": launches,
+          "ef_clients": len(run._ef_residual), "ledger": run.ledger.summary()})
+    losses = check_run(run, history, launches, want, alg, compress, ROUNDS)
+    require(losses[-1] < losses[0],
+            f"{alg}/{compress}: last loss {losses[-1]} not below first "
+            f"{losses[0]}")
+    require(0.0 <= acc <= 1.0, f"{alg}/{compress}: accuracy {acc}")
+    if compress == TOPK:
+        check_error_feedback(run)
     return run, launches
+
+
+def check_error_feedback(run) -> None:
+    """On one client of the last cohort, through the kernel: exactly k
+    coordinates are sent and sent + new residual == payload + old
+    residual, coordinate for coordinate."""
+    cid = min(run._ef_residual)
+    payload, _ = run.strategy.client_step(run._client_data(cid),
+                                          np.random.default_rng(0))
+    old = run._ef_residual[cid]
+    gen = torch.Generator(device=run.device).manual_seed(0)
+    sent, res = run.codec.roundtrip(payload, gen, old)
+    leaves = list(zip(tree_leaves(sent), tree_leaves(res),
+                      tree_leaves(payload), tree_leaves(old), strict=True))
+    exact = all(bool(torch.equal(s + r, p + o)) for s, r, p, o in leaves)
+    n = sum(p.numel() for _, _, p, _ in leaves)
+    kept = sum(int(torch.count_nonzero(s)) for s, _, _, _ in leaves)
+    emit({"phase": "error_feedback", "algorithm": run.algorithm,
+          "client": cid, "n": n, "k": run.codec._k(n), "kept": kept,
+          "exact": exact})
+    require(exact, f"{run.algorithm}: sent + residual != payload + old "
+            "residual")
+    require(kept == run.codec._k(n), f"{run.algorithm}: kept {kept} of "
+            f"{n}, billed {run.codec._k(n)}")
 
 
 def _flat(tree) -> torch.Tensor:
     return torch.cat([t.reshape(-1).float() for t in tree_leaves(tree)])
 
 
+def _rel(x, y) -> float:
+    fx, fy = _flat(x), _flat(y)
+    return float((fx - fy).norm()) / max(float(fy.norm()), 1e-30)
+
+
 def kernels_off_beside_auto(run_auto, train, test, compress: str):
     """One more round from the auto run's state, on a kernels="off" run
-    with the same state, sampling stream and codec stream.  The off round
-    launches no kernel; afterwards every part of the strategy's state
-    agrees: params, the Fisher diagonal (this round's fim_diag output) and
-    the history pairs (this round's Gram and, under int8, the codec)."""
+    with the same state, sampling stream, codec stream and error-feedback
+    residuals.  The off round launches no kernel; afterwards every part of
+    the strategy's state agrees: params and, for fim_lbfgs, the Fisher
+    diagonal (this round's fim_diag output) and the history pairs (this
+    round's Gram and codec), and under top-k every residual."""
+    alg = run_auto.algorithm
     run_off = FederatedRun(FMNIST_CNN,
                            FedConfig(compress=compress, kernels="off", **RUN),
-                           train, test, "fim_lbfgs", device="cuda")
+                           train, test, alg, device="cuda")
     run_off.strategy.load_state_dict(run_auto.strategy.state_dict())
     run_off.rng.bit_generator.state = run_auto.rng.bit_generator.state
     run_off.codec_generator.set_state(run_auto.codec_generator.get_state())
+    run_off._ef_residual = {c: tree_map(torch.clone, r)
+                            for c, r in run_auto._ef_residual.items()}
     start = _flat(run_auto.params).clone()
     run_auto.round()
-    for c in COUNTERS.values():
-        c.LAUNCHES = 0
+    reset_counts()
     run_off.round()
     torch.cuda.synchronize()
-    off_launches = {name: c.LAUNCHES for name, c in COUNTERS.items()}
+    off_launches = read_counts()
     require(not any(off_launches.values()),
-            f"{compress}: kernels='off' launched {off_launches}")
+            f"{alg}/{compress}: kernels='off' launched {off_launches}")
 
-    a, b = run_auto.strategy.opt_state, run_off.strategy.opt_state
-    parts = {"params": (run_auto.params, run_off.params, STEP_TOL),
-             "fim_diag": (a.fim.diag, b.fim.diag, FISHER_TOL),
-             "history_s": (a.history.s, b.history.s, STEP_TOL),
-             "history_y": (a.history.y, b.history.y, STEP_TOL)}
-    rel, tol = {}, {}
-    for name, (x, y, t) in parts.items():
-        fx, fy = _flat(x), _flat(y)
-        rel[name] = float((fx - fy).norm()) / max(float(fy.norm()), 1e-30)
-        tol[name] = INT8_STATE_TOL if compress == "int8" else t
-    counters = {name: (int(x), int(y)) for name, (x, y) in {
-        "history_idx": (a.history.idx, b.history.idx),
-        "history_count": (a.history.count, b.history.count),
-        "fim_steps": (a.fim.steps, b.fim.steps),
-        "step": (a.step, b.step)}.items()}
+    if compress == "int8":
+        state_tol = INT8_STATE_TOL
+    elif compress == TOPK:
+        state_tol = TOPK_STATE_TOL
+    else:
+        state_tol = STEP_TOL
+    parts = {"params": (run_auto.params, run_off.params, state_tol)}
+    counters = {}
+    if alg == "fim_lbfgs":
+        a, b = run_auto.strategy.opt_state, run_off.strategy.opt_state
+        parts.update({
+            "fim_diag": (a.fim.diag, b.fim.diag,
+                         FISHER_TOL if compress == "none" else state_tol),
+            "history_s": (a.history.s, b.history.s, state_tol),
+            "history_y": (a.history.y, b.history.y, state_tol)})
+        counters = {name: (int(x), int(y)) for name, (x, y) in {
+            "history_idx": (a.history.idx, b.history.idx),
+            "history_count": (a.history.count, b.history.count),
+            "fim_steps": (a.fim.steps, b.fim.steps),
+            "step": (a.step, b.step)}.items()}
+    rel = {name: _rel(x, y) for name, (x, y, _) in parts.items()}
+    tol = {name: t for name, (_, _, t) in parts.items()}
+    swaps = []
+    if compress == TOPK:
+        require(sorted(run_auto._ef_residual) == sorted(run_off._ef_residual),
+                f"{alg}: residuals kept for other clients")
+        res = []
+        for c in sorted(run_off._ef_residual):
+            fa = _flat(run_auto._ef_residual[c])
+            fb = _flat(run_off._ef_residual[c])
+            alike = (fa == 0) == (fb == 0)
+            swaps.append(int((~alike).sum()))
+            res.append(float((fa - fb)[alike].norm())
+                       / max(float(fb[alike].norm()), 1e-30))
+        rel["residual_max"], tol["residual_max"] = max(res), TOPK_STATE_TOL
+        k = run_auto.codec._k(fa.numel())
+        require(max(swaps) <= TOPK_SWAP_SHARE * k,
+                f"{alg}: kernels='off' vs 'auto': {max(swaps)} coordinates "
+                f"swapped sides of the threshold (k = {k})")
     step = float((_flat(run_off.params) - start).norm())
-    emit({"phase": "kernels_off_vs_auto", "compress": compress,
-          "step_norm": step, "rel": rel, "tol": tol, "counters": counters})
-    require(step > 0, f"{compress}: kernels='off' round took no step")
+    emit({"phase": "kernels_off_vs_auto", "algorithm": alg,
+          "compress": compress, "step_norm": step, "rel": rel, "tol": tol,
+          "counters": counters, "swapped_per_client": swaps})
+    require(step > 0, f"{alg}/{compress}: kernels='off' round took no step")
     for name, r in rel.items():
-        require(r <= tol[name], f"{compress}: kernels='off' vs 'auto': "
+        require(r <= tol[name], f"{alg}/{compress}: kernels='off' vs 'auto': "
                 f"{name} differs by {r} > {tol[name]} (relative)")
     for name, (x, y) in counters.items():
-        require(x == y, f"{compress}: kernels='off' vs 'auto': {name} "
+        require(x == y, f"{alg}/{compress}: kernels='off' vs 'auto': {name} "
                 f"{x} != {y}")
+
+
+def other_strategy(train, test, alg: str) -> dict:
+    """2 rounds of ``alg`` under compress="none": ledger == plan and the
+    fim_diag/Gram launches its code implies; the second round's time is
+    the steady one."""
+    rounds = 2
+    overrides = STRATEGY_OVERRIDES.get(alg, {})
+    run, history, setup_s, round_s, launches, cohorts = drive(
+        train, test, alg, "none", rounds, **overrides)
+    n_leaves = len(tree_leaves(cnn.init(FMNIST_CNN,
+                                        torch.Generator().manual_seed(0))))
+    if alg == "fedova_lbfgs":
+        # one grad_fim (n_leaves fim_diag) and one FIM-L-BFGS step (one
+        # Gram) per class present in each selected client's data
+        trained = sum(len(np.unique(train.y[run.partition[c]]))
+                      for cohort in cohorts for c in cohort)
+        want = {"fim_diag": n_leaves * trained, "vlbfgs_gram": trained,
+                "int8_roundtrip": 0, "topk_select": 0}
+    else:
+        want = expected_launches(alg, "none", n_leaves, rounds, COHORT)
+    row = {"phase": "strategy", "algorithm": alg, "overrides": overrides,
+           "losses": [h["loss"] for h in history], "setup_s": setup_s,
+           "round_s": round_s, "steady_round_s": round_s[-1],
+           "launches": launches, "ledger": run.ledger.summary()}
+    emit(row)
+    check_run(run, history, launches, want, alg, "none", rounds)
+    return row
 
 
 def round_breakdown(run) -> None:
     """Where a round's time goes: one client step (gradient + per-example
-    Fisher), one int8 payload round-trip and one aggregate + server step,
-    each the median of 3 synchronised host-clock timings."""
+    Fisher), one int8 and one top-k payload round-trip and one aggregate +
+    server step, each the median of 3 synchronised host-clock timings."""
     sizes = [len(p) for p in run.partition]
     k = max(range(len(sizes)), key=sizes.__getitem__)
     data = run._client_data(k)
-    int8 = codecs.make("int8")
+    int8, topk = codecs.make("int8"), codecs.make(TOPK)
     gen = torch.Generator(device=run.device).manual_seed(0)
 
     def timed(fn, reps=3):
@@ -356,6 +550,7 @@ def round_breakdown(run) -> None:
 
     (payload, _), client_s = timed(lambda: run.strategy.client_step(data, None))
     _, int8_s = timed(lambda: int8.roundtrip(payload, gen))
+    _, topk_s = timed(lambda: topk.roundtrip(payload, gen, payload))
     weights = torch.full((COHORT,), float(sizes[k]), device=run.device)
     snapshot = run.strategy.state_dict()
 
@@ -367,7 +562,7 @@ def round_breakdown(run) -> None:
     _, server_s = timed(server)
     emit({"phase": "round_breakdown", "client_examples": sizes[k],
           "client_step_s": client_s, "int8_payload_s": int8_s,
-          "aggregate_server_step_s": server_s,
+          "topk_payload_s": topk_s, "aggregate_server_step_s": server_s,
           "round_estimate_s": COHORT * client_s + server_s})
 
 
@@ -378,6 +573,7 @@ def main() -> int:
         return 2
 
     # phase 1: the card and the build
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -403,17 +599,37 @@ def main() -> int:
     gram_rows = [check_gram(dev, 21, 206_922),
                  check_gram(dev, 21, 10_001)]
     int8_rows = [check_int8(dev, s) for s in leaf_shapes]
+    # the (g, Γ) payload of fim_lbfgs (2d) and the delta of fedavg_sgd (d)
+    # at k = ceil(0.1 n), a size that is no multiple of the 4096-element
+    # tile, and the ends k = 1 and k = n
+    d = sum(leaf_sizes)
+    topk_rows = [check_topk(dev, n, k) for n, k in (
+        (2 * d, math.ceil(0.1 * 2 * d)), (d, math.ceil(0.1 * d)),
+        (100_003, 10_001), (2 * d, 1), (2 * d, 2 * d))]
 
-    # phase 3: the main path, with launch counts from these runs only
+    # phase 3: the main paths, with launch counts from these runs only
     train, test = make_classification(FMNIST_CNN, n_train=N_TRAIN,
                                       n_test=N_TEST, seed=0)
-    run_none, launches_none = main_path(train, test, "none")
-    run_int8, launches_int8 = main_path(train, test, "int8")
-    total = {k: launches_none[k] + launches_int8[k] for k in COUNTERS}
+    total = dict.fromkeys(COUNTERS, 0)
+
+    def count(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    run_none, launches = main_path(train, test, "none")
+    count(launches)
     kernels_off_beside_auto(run_none, train, test, "none")
-    kernels_off_beside_auto(run_int8, train, test, "int8")
-    del run_int8
+    for alg, compress in (("fim_lbfgs", "int8"), ("fim_lbfgs", TOPK),
+                          ("fedavg_sgd", TOPK)):
+        run, launches = main_path(train, test, compress, alg)
+        count(launches)
+        kernels_off_beside_auto(run, train, test, compress)
+        del run
+    for alg in ("fedavg_adam", "fedprox", "feddane", "fedova",
+                "fedova_lbfgs"):
+        count(other_strategy(train, test, alg)["launches"])
     round_breakdown(run_none)
+    del run_none
 
     # phase 4: the kernels line, then the result line
     def entry(name, source, replaces, rows, launches):
@@ -433,6 +649,7 @@ def main() -> int:
                  "bound_ms": sum(r["bound_ms"] for r in int8_rows),
                  "bound_by": "bytes", "library_ms": None,
                  "max_err": max(r["max_err"] for r in int8_rows)}
+    emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         entry("fim_diag", "src/repro_torch/csrc/fim_diag.cu",
               "src/repro/kernels/fim_diag.py:40", fim_rows, total["fim_diag"]),
@@ -441,6 +658,9 @@ def main() -> int:
         entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
               "src/repro/kernels/codec_ops.py:69", [int8_tree],
               total["int8_roundtrip"]),
+        entry("topk_select", "src/repro_torch/csrc/topk.cu",
+              "src/repro/kernels/codec_ops.py:133", topk_rows,
+              total["topk_select"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

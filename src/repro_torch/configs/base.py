@@ -11,7 +11,10 @@ class FedConfig:
     """Federated-learning run settings (paper's Table I symbols)."""
     num_clients: int = 100       # K
     participation: float = 0.2   # q (paper uses C)
+    local_epochs: int = 5        # E
+    batch_size: int = 15         # B
     lbfgs_m: int = 10            # m
+    learning_rate: float = 0.05  # eta (first-order / local SGD)
     second_order_lr: float = 1.0 # eta for the Newton-type step (Alg. 1)
     max_step_norm: float = 1.0   # trust-region clip on ||eta p_t||
     fim_damping: float = 1e-2    # lambda in  y = (Gamma + lambda I) s
@@ -24,6 +27,7 @@ class FedConfig:
     kernels: str = "auto"        # hand-written CUDA kernels (kernels.ops):
                                  # "auto" | "on" | "off", chosen per tensor
                                  # device — see repro_torch.kernels.ops
+    prox_mu: float = 0.1         # FedProx proximal coefficient
     seed: int = 0
     edge: Optional[Any] = None   # the edge runtime is a later slice
 
@@ -46,6 +50,9 @@ class FedConfig:
             raise ValueError(
                 f"FedConfig.participation must be in (0, 1], "
                 f"got {self.participation}")
+        if self.prox_mu < 0.0:
+            raise ValueError(
+                f"FedConfig.prox_mu must be >= 0, got {self.prox_mu}")
         if self.edge is not None:
             raise NotImplementedError(
                 "FedConfig.edge: the edge runtime (repro.edge) is not ported "

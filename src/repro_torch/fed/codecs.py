@@ -8,10 +8,23 @@ A codec answers two questions:
   * ``roundtrip(tree, generator, residual)`` — what the server receives
     after encode+decode, and the residual the client keeps.
 
-Registered here: ``none`` (float32 passthrough) and ``int8`` (per-tensor
-symmetric int8 with stochastic rounding, through the CUDA kernel on CUDA
-tensors).  The reference's ``topk:r`` and ``randk:r`` sparsifiers are not
-ported yet: ``make("topk:0.1")`` raises the unknown-codec error.
+Registered here:
+
+  * ``none``    — float32 passthrough (4 bytes/element);
+  * ``int8``    — per-tensor symmetric int8 with stochastic rounding
+    (1 byte/element), through the CUDA kernel on CUDA tensors;
+  * ``topk:r``  — keep the ``ceil(r·n)`` largest-magnitude coordinates of
+    the flattened payload (the bucketed threshold select, through the
+    CUDA kernel on CUDA tensors); 8 bytes per kept element (value +
+    index);
+  * ``randk:r`` — keep ``ceil(r·n)`` uniformly random coordinates; 4
+    bytes per kept element (the server shares the index seed).
+
+Both sparsifiers keep client-side **error feedback**: what a round drops
+is returned as a residual, which FederatedRun keeps per client and adds
+back into that client's next payload.  They need additive payloads, so
+``FedStrategy.round_plan`` refuses them for plans that are not
+``summable``.
 
     @register("fp16")
     class Fp16Codec(PayloadCodec):
@@ -20,6 +33,7 @@ ported yet: ``make("topk:0.1")`` raises the unknown-codec error.
 from __future__ import annotations
 
 import abc
+import math
 from typing import Callable, Optional
 
 import torch
@@ -27,7 +41,8 @@ import torch
 from repro_torch.fed import comm
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
-from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.pytree import (ravel, tree_leaves, tree_map,
+                                      tree_unflatten)
 
 
 class PayloadCodec(abc.ABC):
@@ -37,6 +52,7 @@ class PayloadCodec(abc.ABC):
 
     name: str = ""            # filled in by ``register``
     sparsifying: bool = False  # zeroes coordinates -> needs summable payloads
+    error_feedback: bool = False  # returns a residual for the caller to keep
     # CUDA kernel knob for the encode loop ("auto" | "on" | "off", see
     # kernels.ops.resolve); ``make(spec, kernels=...)`` sets it per instance
     kernels: str = "auto"
@@ -53,7 +69,9 @@ class PayloadCodec(abc.ABC):
     @abc.abstractmethod
     def roundtrip(self, tree, generator: torch.Generator, residual=None):
         """-> (received_tree, new_residual); ``generator`` (on the
-        payload's device) supplies any random draws."""
+        payload's device) supplies any random draws; ``new_residual`` is
+        the error-feedback state to hand back next round (None for
+        residual-free codecs)."""
 
     def spec(self) -> str:
         """The ``FedConfig.compress`` string that reconstructs this codec."""
@@ -80,7 +98,7 @@ def quantize_tree(tree, generator: torch.Generator):
     ``Int8Codec.roundtrip`` consumes, so the two agree bit for bit."""
     q_leaves, scales = [], []
     for leaf in tree_leaves(tree):
-        u = torch.rand(leaf.shape, generator=generator, device=leaf.device)
+        u = kernel_ops.int8_uniforms(leaf, generator)
         scale = kernel_ref.int8_scale(leaf)
         q_leaves.append(kernel_ref.int8_quantize(leaf, u, scale).to(torch.int8))
         scales.append(scale)
@@ -104,6 +122,87 @@ class Int8Codec(PayloadCodec):
         out = [kernel_ops.int8_roundtrip(leaf, generator, mode=self.kernels)
                for leaf in tree_leaves(tree)]
         return tree_unflatten(tree, out), None
+
+
+class _SparsifyingCodec(PayloadCodec):
+    """Ratio check and the error-feedback round-trip; subclasses pick the
+    surviving coordinates (``_keep``).  Selection is global over the
+    flattened payload (the leaf order of ``utils.pytree.ravel``), so
+    exactly the ``ceil(ratio * n)`` coordinates ``wire_bytes`` bills
+    cross the wire."""
+
+    sparsifying = True
+    error_feedback = True
+    default_ratio = 0.1
+
+    def __init__(self, ratio: Optional[float] = None):
+        ratio = self.default_ratio if ratio is None else float(ratio)
+        if not 0.0 < ratio <= 1.0:
+            raise ValueError(
+                f"codec {self.name or type(self).__name__!r} ratio must be "
+                f"in (0, 1], got {ratio}")
+        self.ratio = ratio
+
+    def spec(self) -> str:
+        return f"{self.name}:{self.ratio:g}"
+
+    def _k(self, size: int) -> int:
+        # an empty payload keeps 0 coordinates, matching wire_bytes(0) == 0
+        if size <= 0:
+            return 0
+        return max(1, min(int(size), math.ceil(self.ratio * size)))
+
+    def _keep(self, flat: torch.Tensor, k: int,
+              generator: torch.Generator) -> torch.Tensor:
+        raise NotImplementedError
+
+    def roundtrip(self, tree, generator, residual=None):
+        if residual is not None:
+            tree = tree_map(torch.add, tree, residual)
+        flat, unravel = ravel(tree)
+        k = self._k(flat.numel())
+        if k == 0:
+            # zero-element no-op: nothing crosses the wire, nothing is
+            # dropped, so the residual is (empty) zeros
+            return tree, tree_map(torch.zeros_like, tree)
+        sent = unravel(self._keep(flat, k, generator))
+        return sent, tree_map(torch.sub, tree, sent)
+
+
+class TopKCodec(_SparsifyingCodec):
+    """Keep the largest-magnitude ``ceil(ratio * n)`` coordinates of the
+    payload (ties on the threshold bucket broken by index).  Wire format:
+    4-byte value + 4-byte index per kept element."""
+
+    def wire_bytes(self, n_floats: float) -> float:
+        return math.ceil(self.ratio * float(n_floats)) * 8.0
+
+    def _keep(self, flat, k, generator):
+        # the bucketed threshold select: no sort, exactly k survive; the
+        # CUDA kernel on CUDA tensors (kernels.ops.topk_select)
+        return kernel_ops.topk_select(flat, k, mode=self.kernels)
+
+
+class RandKCodec(_SparsifyingCodec):
+    """Keep ``ceil(ratio * n)`` uniformly random coordinates.  The index
+    set comes from a seed the server shares, so only the 4-byte values
+    cross the wire.  Plain PyTorch: the reference has no kernel here."""
+
+    def wire_bytes(self, n_floats: float) -> float:
+        return math.ceil(self.ratio * float(n_floats)) * 4.0
+
+    def indices(self, n: int, k: int,
+                generator: torch.Generator) -> torch.Tensor:
+        """The k kept coordinates of an n-element payload, drawn without
+        replacement from ``generator`` (on its device)."""
+        return torch.randperm(n, generator=generator,
+                              device=generator.device)[:k]
+
+    def _keep(self, flat, k, generator):
+        idx = self.indices(flat.numel(), k, generator).to(flat.device)
+        out = torch.zeros_like(flat)
+        out[idx] = flat[idx]
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +274,8 @@ def achieved_ratio(codec: PayloadCodec, n_floats: float) -> float:
 
 register("none", NoneCodec)
 register("int8", Int8Codec)
+register("topk", TopKCodec)
+register("randk", RandKCodec)
 
 # the shared passthrough instance: the default wire format of a PhasePlan
 NONE = NoneCodec()

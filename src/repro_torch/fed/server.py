@@ -3,11 +3,12 @@
 ``FederatedRun`` is a generic round driver over the strategy registry: it
 samples the cohort, meters CommLedger from the strategy's plan (the
 ledger's actuals equal the plan's prediction by construction), round-trips
-uploads through the run codec, aggregates and applies the server step.
+uploads through the run codec (keeping each client's error-feedback
+residual for the sparsifying codecs, keyed by client id), aggregates and
+applies the server step.
 
-Not ported yet: the edge runtime (``FedConfig.edge`` raises), the tracer,
-checkpoint/resume and the error-feedback residuals of the sparsifying
-codecs.
+Not ported yet: the edge runtime (``FedConfig.edge`` raises), the tracer
+and checkpoint/resume.
 
 The run lives on one device.  The training set is moved there once; the
 client sampling draws the reference's numpy stream call for call, so a
@@ -25,6 +26,7 @@ from repro_torch.configs.paper_models import CNNConfig
 from repro_torch.data.partition import noniid_partition
 from repro_torch.data.synthetic import Dataset
 from repro_torch.fed import comm, strategies
+from repro_torch.fed.strategies.base import resolve_device
 
 
 def render_round(rec: dict) -> str:
@@ -33,21 +35,6 @@ def render_round(rec: dict) -> str:
     return (f"round {rec.get('round', 0):4d} "
             f"loss {rec.get('loss', float('nan')):.4f} "
             f"acc {rec.get('accuracy', float('nan')):.4f}")
-
-
-def resolve_device(device) -> torch.device:
-    """The run's device; CUDA must be present when asked for (no silent
-    drop to the CPU).  Also pins f32 numerics: cuDNN runs f32 convolutions
-    in TF32 by default (and matmuls may be allowed to), which keeps ~3
-    decimal digits and would break f32 parity with the reference."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "FederatedRun(device='cuda'): CUDA is not available; pass "
-            "device='cpu' to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return device
 
 
 class FederatedRun:
@@ -64,6 +51,8 @@ class FederatedRun:
         self.algorithm = algorithm
         self.rng = np.random.default_rng(fed_cfg.seed)
         self.ledger = comm.CommLedger()
+        # per-client error-feedback residuals of the sparsifying codecs
+        self._ef_residual: dict[int, object] = {}
         # the codec's random stream (the reference's PRNGKey(seed + 17)
         # chain); a CUDA generator for CUDA payloads
         self.codec_generator = torch.Generator(
@@ -125,7 +114,8 @@ class FederatedRun:
 
     def round(self) -> dict:
         """One round: meter from the plan, collect client payloads
-        (round-tripped through the run codec), aggregate, server step."""
+        (round-tripped through the run codec with per-client error
+        feedback), aggregate, server step."""
         selected = self.sample_clients()
         self._meter_round(selected)
         datas = [self._client_data(i) for i in selected]
@@ -135,8 +125,12 @@ class FederatedRun:
             payload, loss = self.strategy.client_step(
                 data, self.rng, None if context is None else context[j])
             if not self.codec.identity:
-                payload, _ = self.strategy.compress_payload(
-                    payload, self.codec_generator)
+                cid = int(selected[j])
+                payload, res = self.strategy.compress_payload(
+                    payload, self.codec_generator,
+                    self._ef_residual.get(cid))
+                if res is not None:
+                    self._ef_residual[cid] = res
             payloads.append(payload)
             weights.append(len(data[0]))
             losses.append(loss)

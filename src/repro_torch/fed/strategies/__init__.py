@@ -1,5 +1,7 @@
 """Pluggable federated strategies (port of ``repro.fed.strategies``).
-Importing this package registers the ported strategies: ``fim_lbfgs``."""
+Importing this package registers all seven: ``fim_lbfgs``,
+``fedavg_sgd``, ``fedavg_adam``, ``fedprox``, ``feddane``, ``fedova`` and
+``fedova_lbfgs``."""
 from repro_torch.fed.strategies.base import (  # noqa: F401
     FedStrategy,
     PhasePlan,
@@ -7,5 +9,12 @@ from repro_torch.fed.strategies.base import (  # noqa: F401
     get,
     names,
     register,
+    resolve_device,
 )
-from repro_torch.fed.strategies import fim_lbfgs  # noqa: F401  (registers)
+from repro_torch.fed.strategies import (  # noqa: F401  (register)
+    fedavg,
+    feddane,
+    fedova,
+    fedprox,
+    fim_lbfgs,
+)

@@ -64,6 +64,22 @@ class RoundPlan:
         return float(sum(p.down_floats * comm.BYTES_F32 for p in self.phases))
 
 
+def resolve_device(device) -> torch.device:
+    """The device of a run or a strategy; CUDA must be present when asked
+    for (no silent drop to the CPU).  Also pins f32 numerics: cuDNN runs
+    f32 convolutions in TF32 by default (and matmuls may be allowed to),
+    which keeps ~3 decimal digits and would break f32 parity with the
+    reference."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r}: CUDA is not available; pass "
+            "device='cpu' to run on the CPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
 class FedStrategy(abc.ABC):
     """One federated algorithm as a self-describing object.
 
@@ -74,11 +90,11 @@ class FedStrategy(abc.ABC):
     name: str = ""  # filled in by ``register``
 
     def __init__(self, model_cfg: Any, fed_cfg: Any, n_classes: int,
-                 device="cpu"):
+                 device="cuda"):
         self.mcfg = model_cfg
         self.fcfg = fed_cfg
         self.n_classes = n_classes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # the run's payload codec (FedConfig.compress), with the kernel knob
         self.codec = codecs.make(fed_cfg.compress,
                                  kernels=fed_cfg.kernels)
@@ -160,7 +176,9 @@ class FedStrategy(abc.ABC):
                          codec: Optional[codecs.PayloadCodec] = None
                          ) -> tuple[Any, Any]:
         """Round-trip the payload through ``codec`` (default: the run's).
-        Returns ``(payload, new_residual)``."""
+        Returns ``(payload, new_residual)``; FederatedRun keeps the
+        client's error-feedback residual and threads it back in next
+        round."""
         return (codec or self.codec).roundtrip(payload, generator, residual)
 
     # -- evaluation ------------------------------------------------------

@@ -56,6 +56,12 @@ def vlbfgs_gram(basis, mode: str = "auto"):
     return _vl.gram(basis)
 
 
+def int8_uniforms(x, generator: torch.Generator) -> torch.Tensor:
+    """The rounding uniforms of one int8 round-trip: one ``torch.rand``
+    draw shaped like ``x`` from ``generator``."""
+    return torch.rand(x.shape, generator=generator, device=x.device)
+
+
 def int8_roundtrip(x, generator: torch.Generator, mode: str = "auto"):
     """Int8 stochastic-rounding quantize+dequantize of one payload tensor.
 
@@ -64,8 +70,21 @@ def int8_roundtrip(x, generator: torch.Generator, mode: str = "auto"):
     version round identically (bit for bit)."""
     if x.numel() == 0:
         return x.float()
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = int8_uniforms(x, generator)
     scale = ref.int8_scale(x)
     if resolve(mode, x.device) == "plain":
         return ref.int8_roundtrip_ref(x, u, scale)
     return _codec.int8_roundtrip(x.float().contiguous(), u, scale)
+
+
+def topk_select(flat, k: int, mode: str = "auto"):
+    """Zero all but the ``k`` largest-|x| entries of a 1-D payload by the
+    bucketed threshold select (exactly ``k`` survive, ties on the
+    threshold bucket broken by index: the codec's ``wire_bytes`` billing
+    invariant).  ``k`` is a host int in [0, n]."""
+    if not 0 <= k <= flat.numel():
+        raise ValueError(f"topk_select needs 0 <= k <= n = {flat.numel()}, "
+                         f"got {k}")
+    if resolve(mode, flat.device) == "plain":
+        return ref.topk_select_ref(flat, k)
+    return _codec.topk_select(flat, k)

@@ -2,12 +2,20 @@
 
 They run for CPU tensors, under ``kernels="off"``, and in ``chip_smoke.py``
 as the reference each CUDA kernel is held against.  Each restates the
-matching oracle of ``repro.kernels.ref``; the int8 pair is bit-identical
-to it given the same ``x`` and ``u``.
+matching oracle of ``repro.kernels.ref``; the int8 pair (given the same
+``x`` and ``u``) and the top-k select are bit-identical to it.
 """
 from __future__ import annotations
 
 import torch
+
+# Radix-bucket geometry of the top-k select (the reference's
+# ``repro.kernels.ref`` constants): nonnegative f32 magnitudes order like
+# their bit patterns, so the top 32 - TOPK_SHIFT = 10 bits (sign 0, the 8
+# exponent bits, 1 mantissa bit) are an order-preserving radix with 512
+# reachable buckets; csrc/topk.cu uses the same two numbers.
+TOPK_BUCKETS = 512
+TOPK_SHIFT = 22
 
 
 def fim_diag_ref(grads: torch.Tensor, old_diag: torch.Tensor,
@@ -51,3 +59,21 @@ def int8_roundtrip_ref(x: torch.Tensor, u: torch.Tensor,
     """Per-tensor symmetric int8 with stochastic rounding, dequantized."""
     s = int8_scale(x) if scale is None else scale
     return int8_quantize(x, u, s) * s
+
+
+def topk_select_ref(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero all but the k largest-|x| entries of a 1-D payload by the
+    bucketed threshold select: threshold bucket t is the largest with
+    count(bucket >= t) >= k, and ties on t break by index order, so
+    exactly k survive for 1 <= k <= n.  A kept -0.0 keeps its sign; the
+    dropped entries are +0.0."""
+    bucket = (torch.abs(flat.float()).view(torch.int32) >> TOPK_SHIFT).long()
+    hist = torch.bincount(bucket, minlength=TOPK_BUCKETS)
+    ge = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+    ids = torch.arange(TOPK_BUCKETS, device=flat.device)
+    t = torch.max(torch.where(ge >= k, ids, torch.zeros_like(ids)))
+    need = k - (ge[t] - hist[t])
+    tie = (bucket == t).long()
+    rank = torch.cumsum(tie, 0) - tie        # exclusive index-order rank
+    keep = (bucket > t) | ((tie == 1) & (rank < need))
+    return torch.where(keep, flat, torch.zeros_like(flat))

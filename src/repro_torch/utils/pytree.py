@@ -68,3 +68,22 @@ def tree_axpy(alpha, x, y):
 
 def tree_norm(a) -> torch.Tensor:
     return torch.sqrt(tree_dot(a, a))
+
+
+def ravel(tree) -> tuple[torch.Tensor, Callable]:
+    """-> (flat, unravel): every leaf flattened row-major and concatenated
+    in leaf order (the layout of ``jax.flatten_util.ravel_pytree``), and
+    the inverse that cuts a flat vector of that length back into
+    ``tree``'s structure, shapes and dtypes."""
+    leaves = tree_leaves(tree)
+    shapes = [leaf.shape for leaf in leaves]
+    dtypes = [leaf.dtype for leaf in leaves]
+    sizes = [leaf.numel() for leaf in leaves]
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
+
+    def unravel(vec: torch.Tensor):
+        parts = torch.split(vec, sizes)
+        return tree_unflatten(tree, [p.reshape(s).to(d) for p, s, d in
+                                     zip(parts, shapes, dtypes, strict=True)])
+
+    return flat, unravel

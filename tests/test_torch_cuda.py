@@ -7,7 +7,8 @@ runs on a GPU host that has only PyTorch:
 
 Tolerances: fim_diag and the Gram sum in other orders than the plain
 versions (f32 accumulation), so 1e-5 relative (the Gram relative to its
-largest entry, against an f64 plain product); int8 is bit-identical.
+largest entry, against an f64 plain product); int8 and the top-k select
+are bit-identical.
 """
 import numpy as np
 import pytest
@@ -82,3 +83,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         codec_ops.int8_roundtrip(torch.zeros(4, device=cuda),
                                  torch.zeros(5, device=cuda),
                                  torch.ones((), device=cuda))
+
+
+TOPK_CASES = [(8, 2), (35, 4), (1000, 100), (5000, 1), (2048, 2048),
+              (1537, 700), (1024, 1), (4097, 1), (4097, 4097), (4096, 4095),
+              (100_003, 10_001), (206_922, 20_693), (413_844, 41_385)]
+
+
+def _topk_check(x, k):
+    before = codec_ops.TOPK_LAUNCHES
+    got = ops.topk_select(x, k, mode="on")
+    assert codec_ops.TOPK_LAUNCHES == before + 1
+    want = ref.topk_select_ref(x, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int(torch.count_nonzero(got)) == min(k, int(torch.count_nonzero(x)))
+    return got
+
+
+@pytest.mark.parametrize("n,k", TOPK_CASES)
+def test_topk_kernel_bit_identical_to_plain(cuda, n, k):
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn((n,), generator=gen, device=cuda) * 1e-2
+    got = _topk_check(x, k)
+    assert int(torch.count_nonzero(got)) == k
+
+
+def test_topk_kernel_ties_zeros_and_signed_zeros(cuda):
+    flat = torch.tensor([3.0, -1.0, 1.0, 1.0, -3.0, 1.0, 0.5, -1.0],
+                        device=cuda)
+    for k in range(1, 9):
+        _topk_check(flat, k)
+    # many exact ties across tiles, exact zeros and -0.0 kept with its sign
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 3 * 4096 + 77
+    levels = torch.tensor([0.0, -0.0, 1.0, -1.0, 1.25, 2.0], device=cuda)
+    x = levels[torch.randint(0, 6, (n,), generator=gen, device=cuda)]
+    for k in (1, 100, 4096, 5000, n // 2, n - 1, n):
+        got = ops.topk_select(x, k, mode="on")
+        want = ref.topk_select_ref(x, k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+    zero = x == 0
+    out = ops.topk_select(x, n, mode="on")
+    assert torch.equal(torch.signbit(out[zero]), torch.signbit(x[zero]))
+    assert bool(torch.signbit(x[zero]).any())
+
+
+def test_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_ops.topk_select(torch.ones(8), 2)
+    with pytest.raises(ValueError, match="f32"):
+        codec_ops.topk_select(torch.ones(8, device=cuda, dtype=torch.float64), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        codec_ops.topk_select(torch.ones(16, device=cuda)[::2], 2)
+    with pytest.raises(ValueError, match="k <= n"):
+        codec_ops.topk_select(torch.ones(8, device=cuda), 9)
