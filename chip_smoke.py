@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, and drives Algorithm 1
+each against its plain PyTorch version on the card, drives Algorithm 1
 (``FederatedRun(..., "fim_lbfgs")``), FedAvg and the paper's other
 strategies at the full width of the paper's F-MNIST CNN through the
-kernels.
+kernels, and serves granite-8b and hubert-xlarge at their full published
+widths through the flash-attention kernel.
 
     python3 chip_smoke.py
 
@@ -23,10 +24,19 @@ Phases (any failure raises and exits non-zero):
      of fedavg_adam, fedprox, feddane, fedova and fedova_lbfgs under
      "none"; last the split of a round's time between the client step,
      the codec round-trips and the server step;
-  4. one JSON line listing every ported kernel, then the result line.
+  4. LLM serving: granite-8b at full width in bf16 (36 layers, ~8.2 B
+     parameters drawn on the card): prefill of 2 Zipf prompts of 4,096
+     tokens through the kernel (36 launches a call), the same prefill with
+     kernels="off" beside it, greedy decode of 8 streams for 64 steps;
+     decode against prefill at full width in f32 with 4 layers; the
+     hubert-xlarge encoder at full width (48 layers) on 2 x 4,096 frames,
+     with its off-beside-auto check;
+  5. one JSON line listing every ported kernel, then the result line.
 
-Needs CUDA: without it the script exits 2 and prints no result.  It
-imports nothing of JAX or of the reference package ``repro``.
+Needs CUDA and about 30 GB of device memory at its peak (granite-8b's
+16.5 GB of bf16 weights, the plain attention's f32 scores beside them).
+Without CUDA the script exits 2 and prints no result.  It imports nothing
+of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
@@ -44,26 +54,31 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import granite_8b, hubert_xlarge  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
-from repro_torch.data.synthetic import make_classification  # noqa: E402
+from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
 from repro_torch.fed import codecs  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
-from repro_torch.kernels import (_build, codec_ops, fim_diag, ops, ref,  # noqa: E402
-                                 vlbfgs)
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
+                                 flash_attention, ops, ref, vlbfgs)
+from repro_torch.launch.train import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.models import cnn, transformer  # noqa: E402
+from repro_torch.models import model as zoo  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 # launch counters of the kernel wrappers, by kernel name: (module, attribute)
 COUNTERS = {"fim_diag": (fim_diag, "LAUNCHES"),
             "vlbfgs_gram": (vlbfgs, "LAUNCHES"),
             "int8_roundtrip": (codec_ops, "LAUNCHES"),
-            "topk_select": (codec_ops, "TOPK_LAUNCHES")}
+            "topk_select": (codec_ops, "TOPK_LAUNCHES"),
+            "flash_attention": (flash_attention, "LAUNCHES")}
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
 # tensor cores (the kernels use plain f32 FMAs); rates at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12   # dense, tensor cores
 
 # main-path configuration (F-MNIST's own split sizes)
 N_TRAIN, N_TEST = 60_000, 10_000
@@ -109,6 +124,45 @@ TOPK = "topk:0.1"
 # NaN losses from round 1 there as well (checked on the CPU at 12,000
 # examples, 20 clients); at lr 0.01 both converge
 STRATEGY_OVERRIDES = {"feddane": {"learning_rate": 0.01}}
+# flash attention, kernel vs plain version on the same inputs: both take
+# the scores and the softmax in f32 and sum in other orders -> 2e-5 in f32
+# (tests/test_kernels.py's tolerance).  In bf16 both compute that f32
+# result (apart by ~1e-6, the f32 rows' reading) and round it to bf16 once,
+# so an element may differ by one bf16 ulp and no more: at most 2^-7 of
+# |want| (8 significant bits), plus FLASH_BF16_ATOL for elements so near
+# zero that the f32 difference spans several of their ulps.  A lost key
+# tile moves outputs of |out| ~ 0.03 (S = 4096) by ~1e-3, far outside it.
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
+# LLM serving at full width: prefill of PREFILL_B prompts of PREFILL_S
+# tokens, timed on the second of PREFILL_CALLS calls; greedy decode of
+# DECODE_B streams for DECODE_STEPS steps from an empty cache
+PREFILL_B, PREFILL_S, PREFILL_CALLS = 2, 4096, 2
+DECODE_B, DECODE_STEPS = 8, 64
+# kernels="off" beside "auto" for a bf16 prefill, on the last-position
+# logits (an encoder's last frames), as max|diff| / max|logits| and
+# rms(diff) / rms(logits).  Both paths compute each attention output in f32
+# from the same bf16 q, k, v and differ only in summation order (~1e-6
+# relative); the rounding to bf16 then moves about one output in a
+# thousand by one bf16 ulp, and every later bf16 residual add, norm and
+# matmul re-rounds what differs, so the two runs end apart by the bf16
+# forward's own noise floor, which grows with depth.  The card read max /
+# rms 1.41 % / 1.62 % at granite-8b (36 layers) and 3.67 % / 3.27 % at
+# hubert-xlarge (48 layers); each bound is 2.5x its model's own reading.
+# The kernel itself is held to one bf16 ulp in phase 2, so this gate has
+# to catch faults of the wiring (layout, strides, mask, head map), and
+# wiring_controls shows each run that it does: a wrong mask and a wrong
+# q -> kv head map on the same inputs must fail it.
+OFF_TOL = {"granite-8b": {"max": 0.035, "rms": 0.04},
+           "hubert-xlarge": {"max": 0.09, "rms": 0.08}}
+# decode against prefill at full width in f32, LLM_F32_LAYERS layers,
+# DECODE_T tokens: the same function through the cache (plain attention,
+# one-row matmuls) and through the kernel (full-sequence matmuls), f32
+# sums in other orders over d = 4096 (~1e-6 relative each) through 4
+# layers -> 1e-4 of max|logits| (the reference's decode test holds 1e-4
+# absolute on logits of about that scale)
+LLM_F32_LAYERS, DECODE_T = 4, 64
+DECODE_TOL = 1e-4
 # GPU spin that hides the host's enqueue cost while timing (~10 ms at the
 # H100's ~2 GHz SM clock)
 SLEEP_CYCLES = 20_000_000
@@ -137,9 +191,10 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / F32_FLOPS_PER_S
+    t_ops = n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -288,6 +343,67 @@ def check_topk(dev, n, k):
     return row
 
 
+def live_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep in one head: the work this input
+    needs, whatever the kernel's tiles also touch."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def check_flash(dev, B, H, KV, S, hd, causal, window, dtype):
+    """The kernel against ref.flash_attention_ref on q (B,H,S,hd), k, v
+    (B,KV,S,hd).  The bound counts 4*hd flops a live pair (q.k and p.v) at
+    the tensor cores' bf16 rate or the f32 rate, or each input read and
+    the output written once, whichever is longer.  The library call is
+    scaled_dot_product_attention, timed only."""
+    gen = torch.Generator(device=dev).manual_seed(S * 31 + H + hd)
+    q = torch.randn((B, H, S, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, mode="on")
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        tol = {"rtol": FLASH_BF16_RTOL, "atol": FLASH_BF16_ATOL}
+    else:
+        tol = {"rtol": FLASH_F32_TOL, "atol": FLASH_F32_TOL}
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), **tol))
+    del want
+    flops = 4.0 * hd * live_pairs(S, causal, window) * B * H
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
+                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    mask = None
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = i[None, :] > i[:, None] - window
+        if causal:
+            mask &= i[:, None] >= i[None, :]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    row = {"kernel": "flash_attention", "shape": [B, H, KV, S, hd],
+           "causal": causal, "window": window, "dtype": str(dtype)[6:],
+           "max_err": err, "tol": tol,
+           **timings(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 window=window, mode="on"),
+                     lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                     window=window),
+                     library),
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "flops": flops, "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(ok, f"flash_attention {row['shape']} causal={causal} "
+            f"window={window} {dtype}: max err {err} > {tol}")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -320,7 +436,8 @@ def expected_launches(alg: str, compress: str, n_leaves: int, rounds: int,
             "int8_roundtrip": (2 * n_leaves * cohort * rounds
                                if compress == "int8" and alg == "fim_lbfgs"
                                else 0),
-            "topk_select": cohort * rounds if compress == TOPK else 0}
+            "topk_select": cohort * rounds if compress == TOPK else 0,
+            "flash_attention": 0}
 
 
 def drive(train, test, alg: str, compress: str, rounds: int, **overrides):
@@ -516,7 +633,7 @@ def other_strategy(train, test, alg: str) -> dict:
         trained = sum(len(np.unique(train.y[run.partition[c]]))
                       for cohort in cohorts for c in cohort)
         want = {"fim_diag": n_leaves * trained, "vlbfgs_gram": trained,
-                "int8_roundtrip": 0, "topk_select": 0}
+                "int8_roundtrip": 0, "topk_select": 0, "flash_attention": 0}
     else:
         want = expected_launches(alg, "none", n_leaves, rounds, COHORT)
     row = {"phase": "strategy", "algorithm": alg, "overrides": overrides,
@@ -566,6 +683,194 @@ def round_breakdown(run) -> None:
           "round_estimate_s": COHORT * client_s + server_s})
 
 
+# ---------------------------------------------------------------------------
+# phase 4: LLM serving at full width
+# ---------------------------------------------------------------------------
+def timed_s(fn):
+    """(result, seconds) of ``fn`` on the host clock, ended by a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_diff(got, want) -> dict:
+    d = (got - want).float()
+    w = want.float()
+    return {"max": float(d.abs().max() / w.abs().max()),
+            "rms": float(d.pow(2).mean().sqrt() / w.pow(2).mean().sqrt())}
+
+
+def wiring_controls(cfg, params, batch, n_out: int, off) -> dict:
+    """The plain path with a wrong wiring, beside ``off`` (the plain
+    prefill's logits): the mask flipped (causal <-> non-causal) and the
+    q -> kv head map shifted by one KV head (wk and wv rolled by one head,
+    which is what reading the wrong KV head does).  Each must fail the
+    off-beside-auto gate, or that gate could not see such a fault."""
+    inputs = next(iter(batch.values()))
+    hd = cfg.resolved_head_dim
+
+    def logits(p, c):
+        hidden, _ = transformer.forward(p, c, inputs, kernels="off")
+        return transformer.logits_fn(p, cfg, hidden[:, -n_out:])
+
+    attn = dict(params["layers"]["attn"])
+    for name in ("wk", "wv"):
+        attn[name] = torch.roll(attn[name], hd, dims=-1)
+    rolled = {**params, "layers": {**params["layers"], "attn": attn}}
+    return {"mask": rel_diff(logits(params, cfg.replace(
+                is_encoder=not cfg.is_encoder)), off),
+            "head_map": rel_diff(logits(rolled, cfg), off)}
+
+
+def prefill_phase(cfg, params, batch, n_out: int) -> dict:
+    """PREFILL_CALLS prefills through the kernel (one launch a layer each,
+    no other kernel), then one with kernels="off" (no launch), and the
+    logits of the two (the last position, or an encoder's last frames)
+    held within OFF_TOL of their scale; wiring_controls shows that bound
+    rejects a wrong mask or head map."""
+    L = cfg.num_layers
+    prefill = make_prefill_step(cfg)
+    seconds, flash_launches, logits = [], [], None
+    for call in range(PREFILL_CALLS):
+        reset_counts()
+        logits, sec = timed_s(lambda: prefill(params, batch))
+        seconds.append(sec)
+        launches = read_counts()
+        flash_launches.append(launches["flash_attention"])
+        require(launches == {**dict.fromkeys(COUNTERS, 0), "flash_attention": L},
+                f"{cfg.name} prefill call {call}: launches {launches}, "
+                f"want {L} flash_attention")
+    B, S = next(iter(batch.values())).shape[:2]
+    require(tuple(logits.shape) == (B, n_out, cfg.vocab_size)
+            and logits.dtype == torch.float32,
+            f"{cfg.name} prefill: logits {tuple(logits.shape)} {logits.dtype}")
+    require(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: logits "
+            "not finite")
+    reset_counts()
+    off, off_s = timed_s(lambda: make_prefill_step(cfg, kernels="off")(params,
+                                                                       batch))
+    off_launches = read_counts()
+    require(not any(off_launches.values()),
+            f"{cfg.name} kernels='off' prefill launched {off_launches}")
+    last = rel_diff(logits, off)
+    tol = OFF_TOL[cfg.name]
+    row = {"phase": "llm_prefill", "arch": cfg.name, "batch": B, "seq": S,
+           "layers": L, "prefill_s": seconds,
+           "prefill_tokens_per_s": B * S / seconds[-1],
+           "flash_launches": flash_launches, "off_prefill_s": off_s,
+           "off_vs_auto_rel": last, "tol": tol,
+           "wrong_wiring_rel": wiring_controls(cfg, params, batch, n_out, off)}
+    emit(row)
+    require(last["max"] <= tol["max"] and last["rms"] <= tol["rms"],
+            f"{cfg.name}: kernels='off' vs 'auto' last-position logits differ "
+            f"by {last} of their scale")
+    for fault, r in row["wrong_wiring_rel"].items():
+        require(r["max"] > tol["max"] or r["rms"] > tol["rms"],
+                f"{cfg.name}: a wrong {fault} moves the logits by only {r}, "
+                f"inside the off-beside-auto bound {tol}")
+    return row
+
+
+def serve_granite(dev) -> dict:
+    """granite-8b at full width in bf16: prefill, then greedy decode."""
+    cfg = granite_8b.CONFIG
+    params, init_s = timed_s(lambda: zoo.init(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    emit({"phase": "llm_init", "arch": cfg.name, "params": n_params,
+          "param_count": cfg.param_count(), "init_s": init_s,
+          "memory_GB": torch.cuda.memory_allocated() / 1e9})
+    toks = torch.from_numpy(zipf_tokens(PREFILL_B, PREFILL_S, cfg.vocab_size,
+                                        seed=0)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    row = prefill_phase(cfg, params, {"tokens": toks}, 1)
+
+    serve = make_serve_step(cfg)
+    cache = zoo.init_cache(cfg, DECODE_B, DECODE_STEPS, device=dev)
+    # one start token a stream, so the streams differ
+    tok = torch.arange(DECODE_B, dtype=torch.int32, device=dev)[:, None]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, cache = serve(params, cache, tok)         # (B, 1, V)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)  # greedy (B, 1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    row.update({"decode_batch": DECODE_B, "decode_steps": DECODE_STEPS,
+                "decode_s": decode_s,
+                "decode_tokens_per_s": DECODE_B * DECODE_STEPS / decode_s,
+                "decode_ms_per_step": 1e3 * decode_s / DECODE_STEPS,
+                "cache_pos": int(cache.pos), "sample": tok[:, 0].tolist(),
+                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "llm_decode", **{k: row[k] for k in (
+        "decode_batch", "decode_steps", "decode_s", "decode_tokens_per_s",
+        "decode_ms_per_step", "cache_pos", "sample", "peak_memory_GB")}})
+    require(bool(finite), f"{cfg.name} decode: logits not finite")
+    require(int(cache.pos) == DECODE_STEPS, f"{cfg.name} decode: cache at "
+            f"{int(cache.pos)}")
+    require(not any(launches.values()),
+            f"{cfg.name} decode (plain attention) launched {launches}")
+    print(f"{cfg.name}: prefill {row['prefill_tokens_per_s']:.0f} tokens/s "
+          f"({PREFILL_B} x {PREFILL_S}), decode {row['decode_tokens_per_s']:.1f} "
+          f"tokens/s ({DECODE_B} streams x {DECODE_STEPS} steps)", flush=True)
+    return row
+
+
+def decode_vs_prefill(dev) -> dict:
+    """granite-8b at full width in f32 with LLM_F32_LAYERS layers: DECODE_T
+    tokens decoded one by one against forward + logits_fn over them
+    through the kernel (tests/test_decode_consistency.py's check)."""
+    cfg = granite_8b.CONFIG.replace(dtype="float32", num_layers=LLM_F32_LAYERS)
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+    toks = torch.from_numpy(zipf_tokens(2, DECODE_T, cfg.vocab_size,
+                                        seed=1)).to(dev)
+    cache = zoo.init_cache(cfg, 2, DECODE_T, device=dev)
+    outs = []
+    for t in range(DECODE_T):
+        lg, cache = zoo.decode_fn(params, cfg, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    reset_counts()
+    hidden, _ = transformer.forward(params, cfg, toks)
+    ref_logits = transformer.logits_fn(params, cfg, hidden)
+    torch.cuda.synchronize()
+    launches = read_counts()["flash_attention"]
+    rel = rel_diff(dec, ref_logits)
+    row = {"phase": "llm_decode_vs_prefill", "arch": cfg.name,
+           "layers": LLM_F32_LAYERS, "dtype": "float32", "tokens": DECODE_T,
+           "rel": rel, "tol": DECODE_TOL, "flash_launches": launches}
+    emit(row)
+    require(launches == LLM_F32_LAYERS, f"decode vs prefill: {launches} "
+            f"flash launches, want {LLM_F32_LAYERS}")
+    require(rel["max"] <= DECODE_TOL, f"decode vs prefill (f32, full width): "
+            f"max diff {rel['max']} of max|logits| > {DECODE_TOL}")
+    return row
+
+
+def serve_hubert(dev) -> dict:
+    """hubert-xlarge's encoder at full width: per-frame logits of the last
+    LOSS_CHUNK frames of 2 x 4,096 frames."""
+    cfg = hubert_xlarge.CONFIG
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = zoo.init(cfg, gen, device=dev)
+    feats = torch.randn((PREFILL_B, PREFILL_S, cfg.d_model), generator=gen,
+                        device=dev)
+    return prefill_phase(cfg, params, {"features": feats},
+                         min(transformer.LOSS_CHUNK, PREFILL_S))
+
+
+def free_cuda() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -606,6 +911,21 @@ def main() -> int:
     topk_rows = [check_topk(dev, n, k) for n, k in (
         (2 * d, math.ceil(0.1 * 2 * d)), (d, math.ceil(0.1 * d)),
         (100_003, 10_001), (2 * d, 1), (2 * d, 2 * d))]
+    # flash attention: granite-8b's prefill first (the row the kernels line
+    # reports), hubert-xlarge's in bf16 and f32, a window at full width,
+    # ragged S, and tests/test_kernels.py's cases in f32 and bf16
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_rows = [check_flash(dev, *case) for case in (
+        (2, 32, 8, 4096, 128, True, 0, bf16),
+        (2, 16, 16, 4096, 80, False, 0, bf16),
+        (2, 16, 16, 4096, 80, False, 0, f32),
+        (2, 32, 8, 4096, 128, True, 1024, bf16),
+        (1, 32, 8, 1000, 128, True, 0, f32),
+        (1, 32, 8, 1000, 128, False, 0, f32),
+        (1, 4, 2, 256, 64, True, 0, f32), (2, 8, 8, 128, 32, True, 0, f32),
+        (1, 8, 1, 256, 64, True, 0, f32), (1, 4, 4, 256, 64, True, 96, f32),
+        (1, 2, 1, 128, 64, False, 0, f32), (1, 4, 2, 128, 64, True, 0, bf16))]
+    free_cuda()
 
     # phase 3: the main paths, with launch counts from these runs only
     train, test = make_classification(FMNIST_CNN, n_train=N_TRAIN,
@@ -630,8 +950,20 @@ def main() -> int:
         count(other_strategy(train, test, alg)["launches"])
     round_breakdown(run_none)
     del run_none
+    free_cuda()
 
-    # phase 4: the kernels line, then the result line
+    # phase 4: LLM serving, each path from fresh counts
+    llm = {"granite": serve_granite(dev)}
+    free_cuda()
+    llm["decode_vs_prefill"] = decode_vs_prefill(dev)
+    free_cuda()
+    llm["hubert"] = serve_hubert(dev)
+    free_cuda()
+    total["flash_attention"] = (sum(llm["granite"]["flash_launches"])
+                                + llm["decode_vs_prefill"]["flash_launches"]
+                                + sum(llm["hubert"]["flash_launches"]))
+
+    # phase 5: the kernels line, then the result line
     def entry(name, source, replaces, rows, launches):
         main = rows[0]
         return {"name": name, "route": "cuda", "source": source,
@@ -661,6 +993,9 @@ def main() -> int:
         entry("topk_select", "src/repro_torch/csrc/topk.cu",
               "src/repro/kernels/codec_ops.py:133", topk_rows,
               total["topk_select"]),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:106", flash_rows,
+              total["flash_attention"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

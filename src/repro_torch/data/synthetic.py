@@ -2,8 +2,9 @@
 
 A numpy copy of ``repro.data.synthetic``: F-MNIST / CIFAR-10 / KWS are
 generated as class-template + structured-noise images with the exact input
-shapes and class counts of the real datasets.  For the same seed every
-array is bit-identical to the reference's.
+shapes and class counts of the real datasets, and Zipfian token streams
+stand in for text.  For the same seed every array is bit-identical to the
+reference's.
 """
 from __future__ import annotations
 
@@ -63,3 +64,12 @@ def _upsample(small: np.ndarray, h: int, w: int) -> np.ndarray:
     d = small[y1][:, x1]
     return (a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
             + cgrid * wy * (1 - wx) + d * wy * wx)
+
+
+def zipf_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Zipfian token streams for LM smoke training and serving."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    return rng.choice(vocab, size=(n_seqs, seq_len), p=probs).astype(np.int32)

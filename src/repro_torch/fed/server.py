@@ -26,7 +26,7 @@ from repro_torch.configs.paper_models import CNNConfig
 from repro_torch.data.partition import noniid_partition
 from repro_torch.data.synthetic import Dataset
 from repro_torch.fed import comm, strategies
-from repro_torch.fed.strategies.base import resolve_device
+from repro_torch.utils.device import resolve_device
 
 
 def render_round(rec: dict) -> str:

@@ -9,7 +9,6 @@ from repro_torch.fed.strategies.base import (  # noqa: F401
     get,
     names,
     register,
-    resolve_device,
 )
 from repro_torch.fed.strategies import (  # noqa: F401  (register)
     fedavg,

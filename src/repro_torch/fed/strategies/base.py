@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import aggregation
 from repro_torch.fed import codecs, comm
 from repro_torch.utils.convert import load_like
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
 
 
@@ -62,22 +63,6 @@ class RoundPlan:
     def downlink_bytes(self) -> float:
         """Per-client broadcast bytes per round (all phases)."""
         return float(sum(p.down_floats * comm.BYTES_F32 for p in self.phases))
-
-
-def resolve_device(device) -> torch.device:
-    """The device of a run or a strategy; CUDA must be present when asked
-    for (no silent drop to the CPU).  Also pins f32 numerics: cuDNN runs
-    f32 convolutions in TF32 by default (and matmuls may be allowed to),
-    which keeps ~3 decimal digits and would break f32 parity with the
-    reference."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r}: CUDA is not available; pass "
-            "device='cpu' to run on the CPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return device
 
 
 class FedStrategy(abc.ABC):

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per-source extra flags: the int8 round-trip must not contract a*b+c into
 # an FMA, or it stops being bit-identical to the plain version
 EXTRA_FLAGS = {"codec_ops": ("-fmad=false",)}
-SOURCES = ("fim_diag", "vlbfgs", "codec_ops", "topk")
+SOURCES = ("fim_diag", "vlbfgs", "codec_ops", "topk", "flash_attention")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -1,8 +1,9 @@
 """Dispatch between the hand-written CUDA kernels and their plain
 PyTorch versions.
 
-Every wrapper takes the reference's ``mode`` knob (``FedConfig.kernels``)
-and picks the path by the device of the tensor it is given:
+Every wrapper takes the reference's ``mode`` knob (``FedConfig.kernels``,
+or the ``kernels`` keyword of the model's prefill) and picks the path by
+the device of the tensor it is given:
 
   ============  ===================  ===================  ============
   tensor        ``"auto"``           ``"on"``             ``"off"``
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.kernels import codec_ops as _codec
 from repro_torch.kernels import fim_diag as _fim
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import vlbfgs as _vl
 
@@ -88,3 +90,12 @@ def topk_select(flat, k: int, mode: str = "auto"):
     if resolve(mode, flat.device) == "plain":
         return ref.topk_select_ref(flat, k)
     return _codec.topk_select(flat, k)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    mode: str = "auto"):
+    """(B,H,S,hd) x (B,KV,S,hd) -> (B,H,S,hd): GQA attention with f32
+    softmax, causal and sliding-window masks (``window`` 0 = none)."""
+    if resolve(mode, q.device) == "plain":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)

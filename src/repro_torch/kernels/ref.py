@@ -16,6 +16,9 @@ import torch
 # reachable buckets; csrc/topk.cu uses the same two numbers.
 TOPK_BUCKETS = 512
 TOPK_SHIFT = 22
+# the masked score of attention (finite, as the reference's: see
+# csrc/flash_attention.cu for why not -inf)
+NEG_INF = -1e30
 
 
 def fim_diag_ref(grads: torch.Tensor, old_diag: torch.Tensor,
@@ -77,3 +80,26 @@ def topk_select_ref(flat: torch.Tensor, k: int) -> torch.Tensor:
     rank = torch.cumsum(tie, 0) - tie        # exclusive index-order rank
     keep = (bucket > t) | ((tie == 1) & (rank < need))
     return torch.where(keep, flat, torch.zeros_like(flat))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, H, S, hd); k, v: (B, KV, S, hd); GQA by head folding (query
+    head h reads KV head h // (H/KV)).  Scores in f32 from q scaled by
+    hd**-0.5 first, masked with the finite -1e30; f32 softmax; returns
+    (B, H, S, hd) in q's dtype."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    qf = q.reshape(B, KV, G, S, hd).float() * hd ** -0.5
+    scores = torch.einsum("bkgqh,bksh->bkgqs", qf, k.float())
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
+    return out.reshape(B, H, S, hd).to(q.dtype)

@@ -8,25 +8,15 @@ before the flatten, so ``fc0`` sees features in the reference's order.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.paper_models import CNNConfig
-
-
-def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
-               in_axis: int = -2) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights (the reference's ``layers.dense_init``;
-    torch's generator gives other draws than JAX's threefry)."""
-    fan_in = shape[in_axis]
-    return (torch.randn(shape, generator=generator)
-            / math.sqrt(fan_in)).to(dtype)
+from repro_torch.models.layers import dense_init
 
 
 def init(cfg: CNNConfig, generator: torch.Generator, dtype=torch.float32):
-    """-> params dict on the CPU (move with ``tree_map``)."""
+    """-> params dict on the generator's device."""
     params = {}
     ch_in = cfg.input_shape[-1]
     h, w = cfg.input_shape[:2]

@@ -8,14 +8,18 @@ runs on a GPU host that has only PyTorch:
 Tolerances: fim_diag and the Gram sum in other orders than the plain
 versions (f32 accumulation), so 1e-5 relative (the Gram relative to its
 largest entry, against an f64 plain product); int8 and the top-k select
-are bit-identical.
+are bit-identical; flash attention 2e-5 in f32 (tests/test_kernels.py's
+tolerance) and one bf16 ulp in bf16: both round an f32 result to bf16
+once, so 2^-7 relative (8 significant bits) plus 1e-5 absolute for
+elements so near zero that the f32 difference spans several of their ulps.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import codec_ops, fim_diag, ops, ref, vlbfgs  # noqa: E402
+from repro_torch.kernels import (codec_ops, fim_diag,  # noqa: E402
+                                 flash_attention, ops, ref, vlbfgs)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +141,74 @@ def test_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         codec_ops.topk_select(torch.ones(16, device=cuda)[::2], 2)
     with pytest.raises(ValueError, match="k <= n"):
         codec_ops.topk_select(torch.ones(8, device=cuda), 9)
+
+
+# B, H, KV, S, hd, causal, window: tests/test_kernels.py's FLASH_CASES,
+# then hubert's hd 80 (MHA, non-causal), granite's hd 128 (GQA 4), a window
+# at hd 128, and ragged S (no multiple of the 64-row tile), down to S = 1
+FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
+               (1, 8, 1, 256, 64, True, 0), (1, 4, 4, 256, 64, True, 96),
+               (1, 2, 1, 128, 64, False, 0),
+               (2, 16, 16, 512, 80, False, 0), (1, 32, 8, 512, 128, True, 0),
+               (1, 8, 2, 1024, 128, True, 256),
+               (1, 4, 2, 200, 80, True, 0), (1, 4, 2, 200, 80, False, 0),
+               (1, 4, 2, 1000, 128, True, 96), (1, 2, 1, 37, 32, True, 5),
+               (1, 2, 2, 300, 64, False, 64), (1, 2, 1, 1, 64, True, 0)]
+
+
+def _qkv(dev, B, H, KV, S, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", (2e-5, 2e-5)),
+                                       ("bfloat16", (2.0 ** -7, 1e-5))])
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, S, hd, causal,
+                                              window, dtype, tol):
+    q, k, v = _qkv(cuda, B, H, KV, S, hd, getattr(torch, dtype), S + H + hd)
+    before = flash_attention.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, mode="on")
+    assert flash_attention.LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """The model's (B, S, H, hd) tensors, transposed to (B, H, S, hd) views:
+    read in place, the output in the same layout, equal to the contiguous
+    call."""
+    B, S, H, KV, hd = 2, 333, 8, 2, 128
+    q, k, v = _qkv(cuda, B, H, KV, S, hd, torch.bfloat16, 7)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not qv.is_contiguous()
+    got = flash_attention.flash_attention(qv, kv, vv, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, flash_attention.flash_attention(q, k, v, causal=True))
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(*_qkv(cuda, 1, 4, 2, 64, 96,
+                                              torch.float32, 0))
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention.flash_attention(*_qkv(cuda, 1, 4, 3, 64, 64,
+                                              torch.float32, 0))
+    with pytest.raises(ValueError, match="layout"):
+        flash_attention.flash_attention(q.transpose(2, 3), k, v)
+    wide = torch.zeros((1, 4, 64, 65), device=cuda)
+    with pytest.raises(ValueError, match="layout"):   # rows of 65 floats
+        flash_attention.flash_attention(wide[..., 1:], k, v)

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples import neither JAX nor the reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -14,8 +14,20 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+# modules of the LLM serving slice, named so that a missing one fails
+LLM_MODULES = ["repro_torch.configs.granite_8b", "repro_torch.configs.granite_20b",
+               "repro_torch.configs.phi4_mini", "repro_torch.configs.qwen3_32b",
+               "repro_torch.configs.hubert_xlarge",
+               "repro_torch.configs.chameleon_34b",
+               "repro_torch.kernels.flash_attention", "repro_torch.launch.train",
+               "repro_torch.models.layers", "repro_torch.models.attention",
+               "repro_torch.models.transformer", "repro_torch.models.model",
+               "repro_torch.utils.device"]
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path) -> set:
@@ -50,7 +62,9 @@ def test_every_module_imports_with_jax_blocked():
         "leaked = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"
-        "assert len(names) >= 20, names\n"
+        f"missing = set({LLM_MODULES!r}) - set(names)\n"
+        "assert not missing, missing\n"
+        "assert len(names) >= 40, names\n"
         "print(len(names))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -6,7 +6,8 @@ kernels themselves are held against these plain versions on the card by
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances follow ``tests/test_kernels.py``: fim_diag 1e-5 (f32) / 5e-2
 (bf16, 8-bit mantissa inputs), Gram 1e-5 relative to its largest entry;
-the int8 round-trip and its scale are exact (bit-identical).
+the int8 round-trip and its scale are exact (bit-identical); flash
+attention 2e-5 (f32) / 5e-2 (bf16 output, one bf16 ulp at |out| ~ 2).
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -18,12 +19,17 @@ torch = pytest.importorskip("torch")
 from repro.kernels import codec_ops as rcodec  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
-from repro_torch.kernels import codec_ops, fim_diag, ops, ref, vlbfgs  # noqa: E402
+from repro_torch.kernels import (codec_ops, fim_diag,  # noqa: E402
+                                 flash_attention, ops, ref, vlbfgs)
 
 FIM_SHAPES = [(8, 256), (64, 1000), (256, 4096), (5, 131), (300, 3000),
               (300, 5000), (257, 2049)]
 GRAM_SHAPES = [(5, 512), (21, 4096), (21, 10_001), (9, 64), (9, 12_300)]
 INT8_SHAPES = [(7,), (1000,), (33, 129), (4096,), (300, 17), (3, 3, 16, 16)]
+# tests/test_kernels.py's FLASH_CASES: B, H, KV, S, hd, causal, window
+FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
+               (1, 8, 1, 256, 64, True, 0), (1, 4, 4, 256, 64, True, 96),
+               (1, 2, 1, 128, 64, False, 0)]
 
 
 # ------------------------------------------------------ plain vs reference
@@ -92,6 +98,56 @@ def test_int8_scale_of_all_zero_tensor():
     assert torch.equal(ref.int8_roundtrip_ref(z, torch.rand(5)), z)
 
 
+def _qkv(B, H, KV, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, S, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, S, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, S, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", FLASH_CASES)
+def test_flash_attention_plain_matches_reference_and_its_kernel(
+        B, H, KV, S, hd, causal, window):
+    """The plain version against the reference's oracle and its Pallas
+    kernel in interpret mode, at S <= 128 or a multiple of 128 (where the
+    Pallas kernel is defined, see the ragged test below)."""
+    q, k, v = _qkv(B, H, KV, S, hd, S + H)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                              window=window).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for want in (rref.flash_attention_ref(jq, jk, jv, causal=causal, window=window),
+                 rops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                      force_kernel=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_plain_bf16_matches_reference():
+    q, k, v = _qkv(1, 4, 2, 128, 64, 0)
+    jb = [jnp.asarray(a.astype(ml_dtypes.bfloat16)) for a in (q, k, v)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ops.flash_attention(*tb)
+    assert got.dtype == torch.bfloat16
+    for want in (rref.flash_attention_ref(*jb),
+                 rops.flash_attention(*jb, force_kernel=True)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+def test_flash_attention_plain_ragged_s_matches_the_oracle(causal, window):
+    """S = 200 (> 128, no multiple of 128): against the reference's oracle
+    only, since its Pallas kernel reads NaN there (its padded tail tile is
+    not masked by ``kpos < S``; a reference caveat, see ROADMAP)."""
+    q, k, v = _qkv(1, 4, 2, 200, 80, 200)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                              window=window).numpy()
+    want = rref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                    window=window)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
 # --------------------------------------------------------------- dispatch
 def test_resolve_table_on_cpu():
     assert ops.resolve("auto", "cpu") == "plain"
@@ -113,6 +169,9 @@ def test_on_with_cpu_tensors_raises_everywhere():
         ops.vlbfgs_gram(torch.zeros((3, 8)), mode="on")
     with pytest.raises(ValueError):
         ops.int8_roundtrip(torch.ones(8), torch.Generator(), mode="on")
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.zeros((1, 2, 4, 32)), torch.zeros((1, 1, 4, 32)),
+                            torch.zeros((1, 1, 4, 32)), mode="on")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -125,6 +184,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         codec_ops.int8_roundtrip(torch.zeros(3), torch.zeros(3),
                                  torch.ones(()))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(torch.zeros((1, 2, 4, 32)),
+                                        torch.zeros((1, 1, 4, 32)),
+                                        torch.zeros((1, 1, 4, 32)))
+
+
+def test_flash_attention_modes_agree_on_the_cpu():
+    q, k, v = map(torch.from_numpy, _qkv(1, 4, 2, 64, 32, 1))
+    outs = [ops.flash_attention(q, k, v, causal=False, window=16, mode=m)
+            for m in ("auto", "off")]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], ref.flash_attention_ref(q, k, v, causal=False,
+                                                        window=16))
 
 
 def test_int8_modes_agree_and_draw_the_same_stream():
