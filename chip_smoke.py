@@ -5,7 +5,8 @@ each against its plain PyTorch version on the card, drives Algorithm 1
 (``FederatedRun(..., "fim_lbfgs")``), FedAvg and the paper's other
 strategies at the full width of the paper's F-MNIST CNN through the
 kernels, and serves granite-8b and hubert-xlarge at their full published
-widths through the flash-attention kernel.
+widths through the flash-attention kernels (bf16 on the tensor-core kernel,
+f32 on the SIMT kernel).
 
     python3 chip_smoke.py
 
@@ -26,9 +27,10 @@ Phases (any failure raises and exits non-zero):
      the codec round-trips and the server step;
   4. LLM serving: granite-8b at full width in bf16 (36 layers, ~8.2 B
      parameters drawn on the card): prefill of 2 Zipf prompts of 4,096
-     tokens through the kernel (36 launches a call), the same prefill with
-     kernels="off" beside it, greedy decode of 8 streams for 64 steps;
-     decode against prefill at full width in f32 with 4 layers; the
+     tokens through the tensor-core kernel (36 launches a call, each one
+     counted on that kernel), the same prefill with kernels="off" beside
+     it, greedy decode of 8 streams for 64 steps; decode against prefill
+     at full width in f32 with 4 layers (the SIMT kernel); the
      hubert-xlarge encoder at full width (48 layers) on 2 x 4,096 frames,
      with its off-beside-auto check;
   5. one JSON line listing every ported kernel, then the result line.
@@ -67,15 +69,19 @@ from repro_torch.models import cnn, transformer  # noqa: E402
 from repro_torch.models import model as zoo  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
-# launch counters of the kernel wrappers, by kernel name: (module, attribute)
+# launch counters of the kernel wrappers, by kernel name: (module, attribute);
+# flash_attention counts both of its kernels, flash_attention_tc the bf16
+# tensor-core kernel's share (the rest ran the f32 SIMT kernel)
 COUNTERS = {"fim_diag": (fim_diag, "LAUNCHES"),
             "vlbfgs_gram": (vlbfgs, "LAUNCHES"),
             "int8_roundtrip": (codec_ops, "LAUNCHES"),
             "topk_select": (codec_ops, "TOPK_LAUNCHES"),
-            "flash_attention": (flash_attention, "LAUNCHES")}
+            "flash_attention": (flash_attention, "LAUNCHES"),
+            "flash_attention_tc": (flash_attention, "TC_LAUNCHES")}
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the
-# tensor cores (the kernels use plain f32 FMAs); rates at the 700 W limit
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the
+# tensor cores (the f32 SIMT kernels' plain FMAs) and the bf16 tensor-core
+# rate; rates at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12   # dense, tensor cores
@@ -362,7 +368,10 @@ def check_flash(dev, B, H, KV, S, hd, causal, window, dtype):
     q = torch.randn((B, H, S, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
+    tc_before = flash_attention.TC_LAUNCHES
     got = ops.flash_attention(q, k, v, causal=causal, window=window, mode="on")
+    path = ("tensor_core" if flash_attention.TC_LAUNCHES > tc_before
+            else "simt")
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     if dtype == torch.bfloat16:
@@ -390,7 +399,7 @@ def check_flash(dev, B, H, KV, S, hd, causal, window, dtype):
 
     row = {"kernel": "flash_attention", "shape": [B, H, KV, S, hd],
            "causal": causal, "window": window, "dtype": str(dtype)[6:],
-           "max_err": err, "tol": tol,
+           "path": path, "max_err": err, "tol": tol,
            **timings(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                  window=window, mode="on"),
                      lambda: ref.flash_attention_ref(q, k, v, causal=causal,
@@ -401,6 +410,8 @@ def check_flash(dev, B, H, KV, S, hd, causal, window, dtype):
     emit(row)
     require(ok, f"flash_attention {row['shape']} causal={causal} "
             f"window={window} {dtype}: max err {err} > {tol}")
+    require(path == ("tensor_core" if dtype == torch.bfloat16 else "simt"),
+            f"flash_attention {dtype} ran the {path} kernel")
     return row
 
 
@@ -437,7 +448,7 @@ def expected_launches(alg: str, compress: str, n_leaves: int, rounds: int,
                                if compress == "int8" and alg == "fim_lbfgs"
                                else 0),
             "topk_select": cohort * rounds if compress == TOPK else 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc": 0}
 
 
 def drive(train, test, alg: str, compress: str, rounds: int, **overrides):
@@ -633,7 +644,8 @@ def other_strategy(train, test, alg: str) -> dict:
         trained = sum(len(np.unique(train.y[run.partition[c]]))
                       for cohort in cohorts for c in cohort)
         want = {"fim_diag": n_leaves * trained, "vlbfgs_gram": trained,
-                "int8_roundtrip": 0, "topk_select": 0, "flash_attention": 0}
+                "int8_roundtrip": 0, "topk_select": 0, "flash_attention": 0,
+                "flash_attention_tc": 0}
     else:
         want = expected_launches(alg, "none", n_leaves, rounds, COHORT)
     row = {"phase": "strategy", "algorithm": alg, "overrides": overrides,
@@ -732,16 +744,20 @@ def prefill_phase(cfg, params, batch, n_out: int) -> dict:
     rejects a wrong mask or head map."""
     L = cfg.num_layers
     prefill = make_prefill_step(cfg)
-    seconds, flash_launches, logits = [], [], None
+    seconds, flash_launches, tc_launches, logits = [], [], [], None
     for call in range(PREFILL_CALLS):
         reset_counts()
         logits, sec = timed_s(lambda: prefill(params, batch))
         seconds.append(sec)
         launches = read_counts()
         flash_launches.append(launches["flash_attention"])
-        require(launches == {**dict.fromkeys(COUNTERS, 0), "flash_attention": L},
+        tc_launches.append(launches["flash_attention_tc"])
+        # a bf16 model's every launch goes through the tensor-core kernel
+        tc = L if cfg.dtype == "bfloat16" else 0
+        require(launches == {**dict.fromkeys(COUNTERS, 0), "flash_attention": L,
+                             "flash_attention_tc": tc},
                 f"{cfg.name} prefill call {call}: launches {launches}, "
-                f"want {L} flash_attention")
+                f"want {L} flash_attention, {tc} on the tensor-core kernel")
     B, S = next(iter(batch.values())).shape[:2]
     require(tuple(logits.shape) == (B, n_out, cfg.vocab_size)
             and logits.dtype == torch.float32,
@@ -759,7 +775,8 @@ def prefill_phase(cfg, params, batch, n_out: int) -> dict:
     row = {"phase": "llm_prefill", "arch": cfg.name, "batch": B, "seq": S,
            "layers": L, "prefill_s": seconds,
            "prefill_tokens_per_s": B * S / seconds[-1],
-           "flash_launches": flash_launches, "off_prefill_s": off_s,
+           "flash_launches": flash_launches, "tc_launches": tc_launches,
+           "off_prefill_s": off_s,
            "off_vs_auto_rel": last, "tol": tol,
            "wrong_wiring_rel": wiring_controls(cfg, params, batch, n_out, off)}
     emit(row)
@@ -841,14 +858,17 @@ def decode_vs_prefill(dev) -> dict:
     hidden, _ = transformer.forward(params, cfg, toks)
     ref_logits = transformer.logits_fn(params, cfg, hidden)
     torch.cuda.synchronize()
-    launches = read_counts()["flash_attention"]
+    counts = read_counts()
+    launches = counts["flash_attention"]
     rel = rel_diff(dec, ref_logits)
     row = {"phase": "llm_decode_vs_prefill", "arch": cfg.name,
            "layers": LLM_F32_LAYERS, "dtype": "float32", "tokens": DECODE_T,
-           "rel": rel, "tol": DECODE_TOL, "flash_launches": launches}
+           "rel": rel, "tol": DECODE_TOL, "flash_launches": launches,
+           "tc_launches": counts["flash_attention_tc"]}
     emit(row)
-    require(launches == LLM_F32_LAYERS, f"decode vs prefill: {launches} "
-            f"flash launches, want {LLM_F32_LAYERS}")
+    require(launches == LLM_F32_LAYERS and counts["flash_attention_tc"] == 0,
+            f"decode vs prefill: {counts}, want {LLM_F32_LAYERS} flash "
+            "launches, all on the f32 SIMT kernel")
     require(rel["max"] <= DECODE_TOL, f"decode vs prefill (f32, full width): "
             f"max diff {rel['max']} of max|logits| > {DECODE_TOL}")
     return row
@@ -912,11 +932,14 @@ def main() -> int:
         (2 * d, math.ceil(0.1 * 2 * d)), (d, math.ceil(0.1 * d)),
         (100_003, 10_001), (2 * d, 1), (2 * d, 2 * d))]
     # flash attention: granite-8b's prefill first (the row the kernels line
-    # reports), hubert-xlarge's in bf16 and f32, a window at full width,
-    # ragged S, and tests/test_kernels.py's cases in f32 and bf16
+    # reports for the bf16 tensor-core kernel), then decode-vs-prefill's f32
+    # call (its row for the f32 SIMT kernel), hubert-xlarge's in bf16 and
+    # f32, a window at full width, ragged S, and tests/test_kernels.py's
+    # cases in f32 and bf16
     bf16, f32 = torch.bfloat16, torch.float32
     flash_rows = [check_flash(dev, *case) for case in (
         (2, 32, 8, 4096, 128, True, 0, bf16),
+        (2, 32, 8, DECODE_T, 128, True, 0, f32),
         (2, 16, 16, 4096, 80, False, 0, bf16),
         (2, 16, 16, 4096, 80, False, 0, f32),
         (2, 32, 8, 4096, 128, True, 1024, bf16),
@@ -959,9 +982,10 @@ def main() -> int:
     free_cuda()
     llm["hubert"] = serve_hubert(dev)
     free_cuda()
-    total["flash_attention"] = (sum(llm["granite"]["flash_launches"])
-                                + llm["decode_vs_prefill"]["flash_launches"]
-                                + sum(llm["hubert"]["flash_launches"]))
+    for name, key in (("flash_attention", "flash_launches"),
+                      ("flash_attention_tc", "tc_launches")):
+        total[name] = (sum(llm["granite"][key]) + llm["decode_vs_prefill"][key]
+                       + sum(llm["hubert"][key]))
 
     # phase 5: the kernels line, then the result line
     def entry(name, source, replaces, rows, launches):
@@ -994,8 +1018,13 @@ def main() -> int:
               "src/repro/kernels/codec_ops.py:133", topk_rows,
               total["topk_select"]),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:106", flash_rows,
-              total["flash_attention"]),
+              "src/repro/kernels/flash_attention.py:106",
+              [r for r in flash_rows if r["path"] == "tensor_core"],
+              total["flash_attention_tc"]),
+        entry("flash_attention_simt", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:106",
+              [r for r in flash_rows if r["path"] == "simt"],
+              total["flash_attention"] - total["flash_attention_tc"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,43 +1,83 @@
 // Blocked online-softmax (flash) attention with GQA, causal masking and an
 // optional sliding window:
 //   out[b,h,i,:] = sum_j softmax_j(s[i,j]) v[b,h/G,j,:],
-//   s[i,j] = (f32(q[b,h,i,:]) * f32(hd^-0.5)) . f32(k[b,h/G,j,:]),
+//   s[i,j] = hd^-0.5 * (q[b,h,i,:] . k[b,h/G,j,:]),
 // masked to -1e30 unless j < S, (causal) j <= i and (window > 0)
 // j > i - window.  Softmax and accumulation in f32; out in q's dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention
 // (_kernel at :33, pl.pallas_call at :106), whose grid walks the KV blocks of
 // one q block in order with the running max, sum and accumulator in VMEM.
+// Two kernels, one per dtype, share that function and these behaviours: GQA
+// (query head h reads KV head h / (H / KV); K/V are never repeated); a loop
+// over key tiles in place of the TPU's sequential KV grid axis, from the
+// first tile the window keeps to the last the causal mask keeps (the
+// pl.when skip), heaviest causal q tiles first; keys >= S masked, so a
+// ragged S stays finite; the finite -1e30 as the mask, as the reference
+// (-inf would give exp(-inf + inf) = NaN in a row whose first visited tile
+// is wholly masked); out = acc / max(l, 1e-30); q, k, v and out addressed by
+// (batch, head, row) strides with contiguous hd, so the model hands over
+// its (B, S, H, hd) tensors as transposed views without copies; no atomics,
+// so results are deterministic.
 //
 // Bound on the H100: operations.  At granite-8b's prefill (B 2, H 32, KV 8,
-// S 4096, hd 128, bf16, causal) the live (i, j) pairs need
-// 4 * hd flops each, ~2.75e11 flops a call: 0.28 ms at the 989 TFLOP/s of
-// the bf16 tensor cores, against 0.08 ms for its 134 MB of q, k, v and out.
-// This first kernel does not reach the tensor cores: it does every product
-// as an f32 FMA (67 TFLOP/s peak outside the tensor cores), which also holds
-// the f32 path to the plain version at 2e-5.  wgmma/TMA are later work.
+// S 4096, hd 128, bf16, causal) the live (i, j) pairs need 4 * hd flops
+// each, ~2.75e11 flops a call: 0.28 ms at the 989 TFLOP/s of the bf16
+// tensor cores, against 0.08 ms for its 134 MB of q, k, v and out.
 //
-// Design:
-//   * one block of 256 threads per (b*H + h, 64-row q tile), the heaviest
-//     causal tiles first; a loop over 64-key tiles takes the place of the
-//     TPU's sequential KV grid axis, and runs only from the first tile the
-//     window keeps to the last the causal mask keeps (the pl.when skip);
-//   * GQA: query head h reads KV head h / (H / KV); K/V are never repeated;
-//   * tiles are staged in shared memory as f32 rows of hd + 4 (16-byte
-//     aligned rows, conflict-free float4 reads); K and V share one buffer.
-//     Rows >= S are zero-filled and never read from device memory, and
-//     keys >= S are masked: the ragged tail stays finite;
+// f32 (flash_kernel, SIMT): every product an f32 FMA (67 TFLOP/s peak
+// outside the tensor cores), which holds f32 to the plain version at 2e-5.
+//   * one block of 256 threads per (b*H + h, 64-row q tile), 64-key tiles;
+//   * tiles staged in shared memory as f32 rows of hd + 4 (16-byte aligned
+//     rows, conflict-free float4 reads); K and V share one buffer; rows >= S
+//     are zero-filled and never read from device memory;
 //   * thread (ty, tx) owns query rows 4ty..4ty+3, the score columns
 //     tx + 16j (j < 4) and the output columns tx + 16c (c < hd/16); a row's
 //     max and sum are reduced across its 16 threads with shuffles;
-//   * masking uses the finite -1e30 as the reference does: a row whose
-//     first visited tile is wholly masked gets m = -1e30 and p = 1 there,
-//     and the next tile's alpha = exp(-1e30 - m) = 0 wipes that out
-//     (every row meets its diagonal).  -inf would give exp(-inf + inf) = NaN;
-//   * plain expf and IEEE division (no fast math); out = acc / max(l, 1e-30).
-//   * q, k, v and out are addressed by (batch, head, row) strides with
-//     contiguous hd, so the model hands over its (B, S, H, hd) tensors as
-//     transposed views without copies.
+//   * a row whose first visited tile is wholly masked gets m = -1e30 and
+//     p = 1 there, and the next tile's alpha = exp(-1e30 - m) = 0 wipes
+//     that out (every row meets its diagonal);
+//   * plain expf and IEEE division (no fast math).
+//
+// bf16 (tc::flash_tc_kernel, tensor cores): Q.K^T and P.V by wgmma, bf16 in,
+// f32 accumulate, on tiles that TMA brings into shared memory.  With P split
+// (below) the kernel does 6 * hd flops a live pair, not 4 * hd: its own
+// floor at granite's shape is 1.5x the 0.28 ms bound.
+//   * work split: one block of 384 threads per (b*H + h, 128-row q tile).
+//     Warpgroups 0 and 1 consume, 64 q rows each; one thread of warpgroup 2
+//     issues every load.  setmaxnreg moves registers from the producer
+//     (24) to the consumers (240), which hold S (64 f32), O (hd padded / 2
+//     f32) and P hi/lo (64 packed bf16x2) a thread, all live at once while
+//     the softmax overlaps P.V.  Key tiles of 128 at every head dim: at
+//     hd 128 the registers still hold them without a spill.
+//   * loads: TMA from 4-d maps (hd, S, heads, B) built per call from the
+//     tensors' pointers and strides, boxes of 64 columns (one 128-byte
+//     swizzle row) x 128 rows.  Q once; K and V each through a ring of two
+//     stages with full/empty mbarriers, so the next tiles' copies overlap
+//     this tile's products.  TMA fills rows >= S with zeros, and the
+//     columns past hd where hd is no multiple of 64: hd 80 and 32 are
+//     padded to 128 and 64 in shared memory.  Q.K^T skips the padding
+//     (ceil(hd / 16) k16 steps); P.V multiplies it (N is the padded hd) and
+//     drops those columns at the store.
+//   * overlap: tile t's Q.K^T and tile t - 1's P.V are issued together, so
+//     the softmax of t runs while the tensor cores do P.V of t - 1; the two
+//     consumer warpgroups take turns to issue (named barriers), so one's
+//     softmax meets the other's products.
+//   * S = Q K^T: both operands K-major in shared memory, S left unscaled;
+//     hd^-0.5 (times log2 e) is applied in f32 after the product, inside
+//     the exponent: p = 2^(s c - m c), one FFMA and ex2.approx a score.
+//   * masks (-1e30; kpos < S, causal, window) only on tiles that cross the
+//     diagonal, the window's edge or S; running max, alpha and sum in f32
+//     registers, the row's max over its quad of threads by shuffles.  While
+//     a row has met no live key (m = -1e30) its p is 0, not 1.
+//   * O += P V with P split: P_hi = bf16(P), P_lo = bf16(P - P_hi), both as
+//     the register A operand of a wgmma against the same V tile (B
+//     MN-major), into one f32 accumulator.  A single bf16 P loses 8 bits of
+//     each probability and misses the one-bf16-ulp gate against the plain
+//     version on ~10 % of outputs; hi/lo keeps ~16 bits.
+//   * epilogue: O / max(l, 1e-30) in f32, rounded to bf16 once, stored
+//     straight from registers to the rows < S by the output's strides.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,9 +91,7 @@ constexpr int kLdP = kBK + 4;  // row length of the probability tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // 64 rows of hd elements (row r at src + r * stride) -> dst[r * (hd + 4) + d]
 // as f32 times `mul`, in 16-byte loads; rows >= valid are zero-filled.
@@ -266,6 +304,543 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 path: wgmma on TMA-fed tiles, warp-specialised.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBM = 128;           // query rows per block, 64 per consumer warpgroup
+constexpr int kBN = 128;           // keys per tile
+constexpr int kStages = 2;         // K and V ring depth
+constexpr int kConsumers = 256;    // warpgroups 0 and 1
+constexpr int kThreads = 384;      // + warpgroup 2, whose thread 256 issues every load
+constexpr int kRowBytes = 128;     // one 128-byte swizzle row: 64 bf16 of a 64-column chunk
+constexpr int kChunkCols = kRowBytes / 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile of `rows` x hdp bf16 in shared memory: hdp / 64 chunks of rows x 64,
+// each chunk rows x 128 bytes in TMA's 128-byte swizzle (the layout wgmma's
+// 128B descriptors read).  Chunks start on 1,024-byte boundaries.
+template <int HDP>
+struct Layout {
+  static constexpr int kChunks = HDP / kChunkCols;
+  static constexpr int kQBytes = kBM * HDP * 2;
+  static constexpr int kTileBytes = kBN * HDP * 2;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;  // 1 + 4 * kStages mbarriers
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of the 4-d map (hd, S, heads, B) at element coordinates c0..c3
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N of this warpgroup's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers that an in-flight wgmma reads or writes: the compiler may
+// neither move their uses across this point nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D(64x128, f32) = A(64x16 bf16, shared, K-major) * B(16x128 bf16, shared, K-major)
+// + D if accumulate
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64x64, f32) += A(64x16 bf16, registers) * B(16x64 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64x128, f32) += A(64x16 bf16, registers) * B(16x128 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HDP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HDP / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HDP == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H,
+                    int KV, int S, int nq, Strides os, int causal, int window, float scale_log2) {
+  constexpr int HDP = HD <= 64 ? 64 : 128;  // hd padded to whole 64-column chunks
+  constexpr int kSteps = (HD + 15) / 16;    // k16 steps of Q.K^T (the padding is skipped)
+  using L = Layout<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  auto bar_kfull = [&](int st) { return bar_q + 8 * (1 + st); };
+  auto bar_vfull = [&](int st) { return bar_q + 8 * (1 + kStages + st); };
+  auto bar_kempty = [&](int st) { return bar_q + 8 * (1 + 2 * kStages + st); };
+  auto bar_vempty = [&](int st) { return bar_q + 8 * (1 + 3 * kStages + st); };
+
+  const int heads = gridDim.x / nq;  // B * H
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int bh = static_cast<int>(blockIdx.x) % heads;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = iq * kBM;
+  const int q_last = min(q0 + kBM, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / kBN;
+  const int n_tiles = k_last / kBN - t_first + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_kfull(st), 1);
+      mbar_init(bar_vfull(st), 1);
+      mbar_init(bar_kempty(st), kConsumers);
+      mbar_init(bar_vempty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread keeps the K and V rings full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < L::kChunks; ++c)
+        tma_load(sQ + c * kBM * kRowBytes, &tq, bar_q, c * kChunkCols, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        const uint32_t ph = (t / kStages) & 1;
+        const int k0 = (t_first + t) * kBN;
+        mbar_wait(bar_kempty(st), ph ^ 1);
+        mbar_expect_tx(bar_kfull(st), L::kTileBytes);
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load(sK + st * L::kTileBytes + c * kBN * kRowBytes, &tk, bar_kfull(st),
+                   c * kChunkCols, k0, kvh, b);
+        mbar_wait(bar_vempty(st), ph ^ 1);
+        mbar_expect_tx(bar_vfull(st), L::kTileBytes);
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load(sV + st * L::kTileBytes + c * kBN * kRowBytes, &tv, bar_vfull(st),
+                   c * kChunkCols, k0, kvh, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows q0 + 64 wg ... + 63; thread
+    // (warp w, lane) holds rows r0 = 16 w + lane / 4 and r0 + 8 of them,
+    // and in each 8-column group the columns 2 (lane % 4) and + 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (tid / 32) + (tid % 32) / 4;
+    const int col = 2 * (tid % 4);
+    const uint32_t sQw = sQ + wg * 64 * kRowBytes;
+
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    float s[kBN / 2];
+    uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
+
+    // S = Q K_t^T, one commit group: A = this warpgroup's 64 q rows, B = the
+    // key tile, both K-major; a k16 step moves 32 bytes along the swizzled rows
+    auto issue_qk = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(bar_kfull(st), (t / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // bytes into the chunk's rows
+        wgmma_ss_n128(s, desc(sQw + (kk / 4) * kBM * kRowBytes + off, 16, 1024),
+                      desc(sK + st * L::kTileBytes + (kk / 4) * kBN * kRowBytes + off, 16, 1024),
+                      kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // O += P_hi V_t + P_lo V_t, one commit group: B = the value tile,
+    // MN-major (hd contiguous); a k16 step is 16 key rows (2,048 bytes), the
+    // 64-column chunks LBO apart
+    auto issue_pv = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(bar_vfull(st), (t / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t dv =
+            desc(sV + st * L::kTileBytes + kk * 16 * kRowBytes, kBN * kRowBytes, 1024);
+        wgmma_rs<HDP>(acc, p_hi[kk], dv);
+        wgmma_rs<HDP>(acc, p_lo[kk], dv);
+      }
+      wgmma_commit();
+    };
+
+    // s of tile t -> its probabilities in place, alpha, the running max and
+    // this thread's share of the running sum (the quad sums at the end)
+    auto softmax = [&](int t) {
+      const int k0 = (t_first + t) * kBN;
+      // the mask, only on tiles that cross the diagonal, the window's edge or S
+      const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > wq0) ||
+                        (window > 0 && k0 <= wq0 + 63 - window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + col + (i % 2);
+          const int qpos = row0 + 8 * ((i / 2) % 2);
+          bool live = kpos < S;
+          if (causal) live = live && qpos >= kpos;
+          if (window > 0) live = live && kpos > qpos - window;
+          if (!live) s[i] = kNegInf;
+        }
+      }
+      // rows r0 (j = 0) and r0 + 8 (j = 1), each over its quad of threads;
+      // max over the unscaled s (the scale is > 0), then p = 2^(s c - m c)
+      // with c = hd^-0.5 log2 e: the scale in f32 after the product.  A row
+      // with no live key yet (m = -1e30) takes m c = 0, so its p is 0
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < kBN / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * j], s[4 * n + 2 * j + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[j], mx);
+        alpha[j] = ex2((m[j] - m_new) * scale_log2);
+        const float mc = m_new == kNegInf ? 0.f : m_new * scale_log2;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kBN / 8; ++n) {
+          s[4 * n + 2 * j] = ex2(fmaf(s[4 * n + 2 * j], scale_log2, -mc));
+          s[4 * n + 2 * j + 1] = ex2(fmaf(s[4 * n + 2 * j + 1], scale_log2, -mc));
+          sum += s[4 * n + 2 * j] + s[4 * n + 2 * j + 1];
+        }
+        l[j] = l[j] * alpha[j] + sum;
+        m[j] = m_new;
+      }
+    };
+
+    // P = P_hi + P_lo, each bf16: the accumulator layout of S is the A
+    // fragment layout of P.V, k16 step kk taking s[8 kk .. 8 kk + 7]
+    auto split = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x = s[8 * kk + 2 * r], y = s[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          const float2 hf = __bfloat1622float2(hi);
+          p_hi[kk][r] = bf16x2_bits(hi);
+          p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+        }
+    };
+
+    // Tile t's Q.K^T and tile t - 1's P.V are in flight together, so the
+    // softmax of t overlaps P.V of t - 1 on the tensor cores; O takes
+    // tile t's alpha once P.V of t - 1 has landed in it.  The two consumer
+    // warpgroups take turns to issue their products (named barriers 1, 2;
+    // warpgroup 0 goes first).
+    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); };
+    auto turn_pass = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); };
+    if (wg == 1) turn_pass();
+    mbar_wait(bar_q, 0);
+    turn_wait();
+    issue_qk(0);
+    turn_pass();
+    wgmma_wait<0>();
+    pin(s);
+    mbar_arrive(bar_kempty(0));
+    softmax(0);
+    split();
+    for (int t = 1; t < n_tiles; ++t) {
+      turn_wait();
+      issue_qk(t);
+      issue_pv(t - 1);
+      turn_pass();
+      wgmma_wait<1>();
+      pin(s);
+      mbar_arrive(bar_kempty(t % kStages));
+      softmax(t);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p_hi);
+      pin(p_lo);
+      mbar_arrive(bar_vempty((t - 1) % kStages));
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      split();
+    }
+    turn_wait();
+    issue_pv(n_tiles - 1);
+    turn_pass();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(p_hi);
+    pin(p_lo);
+    mbar_arrive(bar_vempty((n_tiles - 1) % kStages));
+
+    // epilogue: O / max(l, 1e-30) in f32, rounded to bf16 once, rows < S
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float lsum = l[j];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      lsum = fmaxf(lsum, 1e-30f);
+      const int row = row0 + 8 * j;
+      if (row < S) {
+        __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s + col;
+#pragma unroll
+        for (int n = 0; n < HDP / 8; ++n) {
+          if (8 * n < HD) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+                acc[4 * n + 2 * j] / lsum, acc[4 * n + 2 * j + 1] / lsum);
+          }
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime: no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (hd, S, heads, B) view of a bf16 tensor with element strides st = (batch,
+// head, row), boxes of 64 columns x `rows` rows, 128-byte swizzle; TMA fills
+// whatever lies past hd or S with zeros
+int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
+             const int64_t* st, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {kChunkCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int S,
+           const int64_t* st, int causal, int window, float scale, void* stream) {
+  using L = Layout<(HD <= 64 ? 64 : 128)>;
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, HD, S, H, B, st, kBM);
+  if (rc == 0) rc = make_map(&mk, k, HD, S, KV, B, st + 3, kBN);
+  if (rc == 0) rc = make_map(&mv, v, HD, S, KV, B, st + 6, kBN);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nq = (S + kBM - 1) / kBM;
+  const Strides os{st[9], st[10], st[11]};
+  flash_tc_kernel<HD><<<static_cast<unsigned int>(nq * B * H), kThreads, L::kBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KV, S, nq, os, causal, window,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int S,
+             int hd, const int64_t* strides, int causal, int window, float scale, void* stream) {
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+    case 80:
+      return launch<80>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // strides: 12 int64 element strides, (batch, head, row) of q, k, v, out in
@@ -279,6 +854,5 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int KV, int S, int hd, const int64_t* strides,
                                     int causal, int window, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, hd, strides, causal, window, scale,
-                                 stream);
+  return tc::dispatch(q, k, v, o, B, H, KV, S, hd, strides, causal, window, scale, stream);
 }

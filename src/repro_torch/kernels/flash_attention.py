@@ -1,11 +1,12 @@
-"""Wrapper of the hand-written flash-attention kernel
-(``csrc/flash_attention.cu``; replaces
+"""Wrapper of the hand-written flash-attention kernels
+(``csrc/flash_attention.cu``; replace
 ``repro/kernels/flash_attention.py:flash_attention``).
 
 Blocked online-softmax attention with GQA, causal masking and an optional
 sliding window, over q ``(B, H, S, hd)`` and k, v ``(B, KV, S, hd)`` in f32
 or bf16, f32 softmax and accumulation, the output in q's dtype: the
-function of ``ref.flash_attention_ref``.
+function of ``ref.flash_attention_ref``.  bf16 runs the tensor-core kernel
+(``wgmma`` on TMA-fed tiles, P split hi/lo), f32 the SIMT kernel (f32 FMAs).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0     # launches of either kernel since the last reset
+TC_LAUNCHES = 0  # of which the bf16 tensor-core kernel's (chip_smoke.py reads both)
 
 HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations (csrc dispatch)
 
@@ -27,9 +29,11 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    """The kernel reads each (batch, head, row) of hd contiguous elements
-    with 16-byte loads: stride 1 on hd, and every other stride and the base
-    address on 16-byte boundaries."""
+    """Both kernels read each (batch, head, row) of hd contiguous elements,
+    the f32 kernel with 16-byte loads, the bf16 kernel by TMA (whose maps
+    need a 16-byte aligned base and strides that are multiples of 16
+    bytes): stride 1 on hd, and every other stride and the base address on
+    16-byte boundaries."""
     elt = t.element_size()
     if (t.stride(3) != 1 or t.data_ptr() % 16
             or any(t.stride(i) * elt % 16 for i in range(3))):
@@ -44,7 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, S, hd); k, v: (B, KV, S, hd), CUDA, f32 or bf16, one
     dtype -> (B, H, S, hd) in q's dtype and memory layout.  Views with
     strides (e.g. a ``(B, S, H, hd)`` tensor transposed) are read in place."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     tensors = {"q": q, "k": k, "v": v}
     if not all(t.is_cuda for t in tensors.values()):
         raise ValueError("flash_attention kernel needs CUDA tensors")
@@ -84,4 +88,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             hd ** -0.5, stream)
     _build.check(rc, "flash_attention")
     LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        TC_LAUNCHES += 1
     return out

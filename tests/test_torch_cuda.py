@@ -145,7 +145,9 @@ def test_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 # B, H, KV, S, hd, causal, window: tests/test_kernels.py's FLASH_CASES,
 # then hubert's hd 80 (MHA, non-causal), granite's hd 128 (GQA 4), a window
-# at hd 128, and ragged S (no multiple of the 64-row tile), down to S = 1
+# at hd 128, and ragged S (no multiple of the 64-row tile), down to S = 1;
+# then the edges of the bf16 kernel's 128-row and 128-key tiles at each
+# head dim, and a window that is no multiple of its tile
 FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
                (1, 8, 1, 256, 64, True, 0), (1, 4, 4, 256, 64, True, 96),
                (1, 2, 1, 128, 64, False, 0),
@@ -153,7 +155,11 @@ FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
                (1, 8, 2, 1024, 128, True, 256),
                (1, 4, 2, 200, 80, True, 0), (1, 4, 2, 200, 80, False, 0),
                (1, 4, 2, 1000, 128, True, 96), (1, 2, 1, 37, 32, True, 5),
-               (1, 2, 2, 300, 64, False, 64), (1, 2, 1, 1, 64, True, 0)]
+               (1, 2, 2, 300, 64, False, 64), (1, 2, 1, 1, 64, True, 0),
+               (1, 4, 2, 127, 64, True, 0), (1, 4, 2, 128, 128, False, 0),
+               (1, 4, 2, 129, 80, True, 0), (1, 2, 1, 255, 128, True, 0),
+               (1, 2, 2, 257, 32, False, 0), (1, 4, 1, 1000, 128, True, 100)]
+FLASH_TOLS = [("float32", (2e-5, 2e-5)), ("bfloat16", (2.0 ** -7, 1e-5))]
 
 
 def _qkv(dev, B, H, KV, S, hd, dtype, seed):
@@ -162,20 +168,39 @@ def _qkv(dev, B, H, KV, S, hd, dtype, seed):
             for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", (2e-5, 2e-5)),
-                                       ("bfloat16", (2.0 ** -7, 1e-5))])
-@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, S, hd, causal,
-                                              window, dtype, tol):
-    q, k, v = _qkv(cuda, B, H, KV, S, hd, getattr(torch, dtype), S + H + hd)
-    before = flash_attention.LAUNCHES
+def _flash_check(q, k, v, causal, window, tol):
+    """One launch, on the tensor-core kernel iff bf16, within ``tol`` of the
+    plain version."""
+    before = flash_attention.LAUNCHES, flash_attention.TC_LAUNCHES
     got = ops.flash_attention(q, k, v, causal=causal, window=window, mode="on")
-    assert flash_attention.LAUNCHES == before + 1
+    tc = int(q.dtype == torch.bfloat16)
+    assert (flash_attention.LAUNCHES, flash_attention.TC_LAUNCHES) == (
+        before[0] + 1, before[1] + tc)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, S, hd, causal,
+                                              window, dtype, tol):
+    q, k, v = _qkv(cuda, B, H, KV, S, hd, getattr(torch, dtype), S + H + hd)
+    _flash_check(q, k, v, causal, window, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window",
+                         [(1, 8, 2, 1000, 128, True, 0),
+                          (1, 4, 4, 300, 80, False, 0)])
+def test_flash_attention_kernel_large_logits(cuda, B, H, KV, S, hd, causal,
+                                             window, dtype, tol):
+    """q x 8: scores of tens, so the running max moves often and far and
+    the rescale (alpha) carries the result."""
+    q, k, v = _qkv(cuda, B, H, KV, S, hd, getattr(torch, dtype), S + hd)
+    _flash_check(q * 8, k, v, causal, window, tol)
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda):
