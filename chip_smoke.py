@@ -13,7 +13,11 @@ f32 on the SIMT kernel).
 Phases (any failure raises and exits non-zero):
   1. device: the card's name and power limit, then the kernel build;
   2. each kernel against its plain version at the main path's shapes,
-     with CUDA-event times (see ``time_ms``) beside the card's bound;
+     with CUDA-event times (see ``time_ms``) beside the card's bound: int8
+     over fim_lbfgs's whole (g, Γ) payload in one launch pair (and each
+     leaf alone); the top-k select on its one-launch cluster path, the
+     four-launch path timed beside it, and one n above the cluster's
+     capacity (the four-launch path);
   3. the main paths, each 5 rounds on 60,000 synthetic F-MNIST examples,
      100 clients, 20 per round, non-IID-2: fim_lbfgs under
      compress="none", "int8" and "topk:0.1", and fedavg_sgd under
@@ -71,11 +75,15 @@ from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 # launch counters of the kernel wrappers, by kernel name: (module, attribute);
 # flash_attention counts both of its kernels, flash_attention_tc the bf16
-# tensor-core kernel's share (the rest ran the f32 SIMT kernel)
+# tensor-core kernel's share (the rest ran the f32 SIMT kernel);
+# int8_roundtrip counts launch pairs (one a payload of up to 64 leaves);
+# topk_select counts calls on either path, topk_select_cluster those on the
+# one-launch cluster path (the rest ran the four-launch path)
 COUNTERS = {"fim_diag": (fim_diag, "LAUNCHES"),
             "vlbfgs_gram": (vlbfgs, "LAUNCHES"),
             "int8_roundtrip": (codec_ops, "LAUNCHES"),
             "topk_select": (codec_ops, "TOPK_LAUNCHES"),
+            "topk_select_cluster": (codec_ops, "TOPK_CLUSTER_LAUNCHES"),
             "flash_attention": (flash_attention, "LAUNCHES"),
             "flash_attention_tc": (flash_attention, "TC_LAUNCHES")}
 
@@ -292,6 +300,8 @@ def check_gram(dev, n, D):
 
 
 def check_int8(dev, shape):
+    """One leaf through the payload kernel (one launch pair), bit-identical
+    to the plain version; its scale to the correctly rounded max/127."""
     gen = torch.Generator(device=dev).manual_seed(sum(shape))
     x = torch.randn(shape, generator=gen, device=dev) * 0.05
     u = torch.rand(shape, generator=gen, device=dev)
@@ -300,7 +310,7 @@ def check_int8(dev, shape):
     require(float(s) == float(np.float32(amax) / np.float32(127)),
             f"int8_scale on the card is not the correctly rounded "
             f"max/127 for {shape}")
-    got = codec_ops.int8_roundtrip(x, u, s)
+    (got,), scales = codec_ops.int8_roundtrip_leaves([x], [u])
     want = ref.int8_roundtrip_ref(x, u, s)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -308,44 +318,103 @@ def check_int8(dev, shape):
     b_ms, by = bound_ms(12.0 * n + 4, 8.0 * n)
     row = {"kernel": "int8_roundtrip", "shape": list(shape), "dtype": "float32",
            "max_err": err, "tol": 0.0,
-           **timings(lambda: codec_ops.int8_roundtrip(x, u, s),
-                     lambda: ref.int8_roundtrip_ref(x, u, s)),
+           **timings(lambda: codec_ops.int8_roundtrip_leaves([x], [u]),
+                     lambda: ref.int8_roundtrip_ref(x, u)),
            "bound_ms": b_ms, "bound_by": by}
     emit(row)
     require(bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
             f"int8_roundtrip {shape}: not bit-identical (max err {err})")
+    require(bool(torch.equal(scales.view(torch.int32),
+                             s.reshape(1).view(torch.int32))),
+            f"int8_roundtrip {shape}: scale {float(scales[0])} != {float(s)}")
     return row
 
 
-def check_topk(dev, n, k):
+def check_int8_payload(dev, shapes):
+    """Every leaf of one payload in one call: one launch pair, each leaf
+    bit-identical to the per-leaf plain version and each scale to
+    ref.int8_scale.  The bound reads x and u and writes out once (12 B an
+    element) and writes the scales."""
+    gen = torch.Generator(device=dev).manual_seed(len(shapes))
+    half = len(shapes) // 2
+    xs = [torch.randn(s, generator=gen, device=dev) * 0.05
+          for s in shapes[:half]]
+    xs += [torch.randn(s, generator=gen, device=dev).square() * 1e-4
+           for s in shapes[half:]]       # Fisher-like Γ leaves
+    us = [torch.rand(s, generator=gen, device=dev) for s in shapes]
+    before = codec_ops.LAUNCHES
+    got, scales = codec_ops.int8_roundtrip_leaves(xs, us)
+    pairs = codec_ops.LAUNCHES - before
+    want_s = [ref.int8_scale(x) for x in xs]
+    want = [ref.int8_roundtrip_ref(x, u, s) for x, u, s in zip(xs, us, want_s)]
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+               for g, w in zip(got, want))
+    same_s = bool(torch.equal(scales.view(torch.int32),
+                              torch.stack(want_s).view(torch.int32)))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    n = sum(x.numel() for x in xs)
+    b_ms, by = bound_ms(12.0 * n + 4 * len(xs), 8.0 * n)
+    row = {"kernel": "int8_roundtrip", "payload": "(g, Γ) of fim_lbfgs",
+           "shape": [list(s) for s in shapes], "leaves": len(shapes), "n": n,
+           "dtype": "float32", "launch_pairs": pairs, "max_err": err,
+           "tol": 0.0,
+           **timings(lambda: codec_ops.int8_roundtrip_leaves(xs, us),
+                     lambda: [ref.int8_roundtrip_ref(x, u)
+                              for x, u in zip(xs, us)]),
+           "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(pairs == 1, f"int8 payload of {len(shapes)} leaves: {pairs} "
+            "launch pairs, want 1")
+    require(same, f"int8 payload: not bit-identical (max err {err})")
+    require(same_s, "int8 payload: scales differ from ref.int8_scale")
+    return row
+
+
+def check_topk(dev, n, k, cluster, capacity):
     """The select on a (g, Γ)-like payload: half gradient-like normals,
     half small Fisher-like squares.  Bit-identical to the plain version,
-    exactly k kept.  The nearest library call, torch.topk of |x|, is an
-    exact top-k with other ties: timed only as a yardstick."""
+    exactly k kept, on the cluster path iff n is within its capacity.  The
+    four-launch path (the design before the cluster path) is timed on the
+    same input beside it, and checked too.  The nearest library call,
+    torch.topk of |x|, is an exact top-k with other ties: timed only as a
+    yardstick."""
     gen = torch.Generator(device=dev).manual_seed(n + k)
     half = n // 2
     x = torch.cat([torch.randn((half,), generator=gen, device=dev) * 1e-2,
                    torch.randn((n - half,), generator=gen, device=dev)
                    .square() * 1e-4])
+    before = codec_ops.TOPK_CLUSTER_LAUNCHES
     got = ops.topk_select(x, k, mode="on")
+    path = "cluster" if codec_ops.TOPK_CLUSTER_LAUNCHES > before else "tiles"
     want = ref.topk_select_ref(x, k)
+    tiles = codec_ops.topk_select_tiles(x, k)
     torch.cuda.synchronize()
     same = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    same_tiles = bool(torch.equal(tiles.view(torch.int32),
+                                  want.view(torch.int32)))
     kept = int(torch.count_nonzero(got))
     err = float((got - want).abs().max())
+    tiles_ms, tiles_call = time_ms(lambda: codec_ops.topk_select_tiles(x, k))
     # each input read once and the output written once; integer work only
     b_ms, by = bound_ms(8.0 * n, 0.0)
     row = {"kernel": "topk_select", "shape": [n], "k": k, "dtype": "float32",
-           "max_err": err, "tol": 0.0, "kept": kept,
+           "path": path, "cluster": cluster if path == "cluster" else None,
+           "capacity": capacity, "max_err": err, "tol": 0.0, "kept": kept,
            **timings(lambda: ops.topk_select(x, k, mode="on"),
                      lambda: ref.topk_select_ref(x, k),
                      lambda: torch.topk(x.abs(), k)),
+           "four_launch_ms": tiles_ms, "four_launch_call_ms": tiles_call,
            "library": "torch.topk(x.abs(), k): nearest library call, exact "
                       "top-k, different ties",
            "bound_ms": b_ms, "bound_by": by}
     emit(row)
     require(same, f"topk_select n={n} k={k}: not bit-identical (max err {err})")
+    require(same_tiles, f"topk_select n={n} k={k}: the four-launch path is "
+            "not bit-identical")
     require(kept == k, f"topk_select n={n} k={k}: kept {kept}")
+    require(path == ("cluster" if n <= capacity else "tiles"),
+            f"topk_select n={n}: ran the {path} path, capacity {capacity}")
     return row
 
 
@@ -442,12 +511,15 @@ def expected_launches(alg: str, compress: str, n_leaves: int, rounds: int,
     FedOVA (whose counts depend on each client's label set)."""
     fim = {"fim_lbfgs": n_leaves * cohort * rounds,
            "feddane": n_leaves * cohort * rounds}.get(alg, 0)
+    # one int8 launch pair a client payload; every main-path top-k call on
+    # the one-launch cluster path
+    topk = cohort * rounds if compress == TOPK else 0
     return {"fim_diag": fim,
             "vlbfgs_gram": rounds if alg == "fim_lbfgs" else 0,
-            "int8_roundtrip": (2 * n_leaves * cohort * rounds
+            "int8_roundtrip": (cohort * rounds
                                if compress == "int8" and alg == "fim_lbfgs"
                                else 0),
-            "topk_select": cohort * rounds if compress == TOPK else 0,
+            "topk_select": topk, "topk_select_cluster": topk,
             "flash_attention": 0, "flash_attention_tc": 0}
 
 
@@ -643,9 +715,8 @@ def other_strategy(train, test, alg: str) -> dict:
         # Gram) per class present in each selected client's data
         trained = sum(len(np.unique(train.y[run.partition[c]]))
                       for cohort in cohorts for c in cohort)
-        want = {"fim_diag": n_leaves * trained, "vlbfgs_gram": trained,
-                "int8_roundtrip": 0, "topk_select": 0, "flash_attention": 0,
-                "flash_attention_tc": 0}
+        want = {**dict.fromkeys(COUNTERS, 0),
+                "fim_diag": n_leaves * trained, "vlbfgs_gram": trained}
     else:
         want = expected_launches(alg, "none", n_leaves, rounds, COHORT)
     row = {"phase": "strategy", "algorithm": alg, "overrides": overrides,
@@ -923,14 +994,24 @@ def main() -> int:
     fim_rows.append(check_fim_diag(dev, 257, 2049, torch.bfloat16))
     gram_rows = [check_gram(dev, 21, 206_922),
                  check_gram(dev, 21, 10_001)]
+    # int8: fim_lbfgs's (g, Γ) payload (16 leaves) in one call, the row
+    # the kernels line reports; then each leaf alone, for comparison
+    int8_payload = check_int8_payload(dev, leaf_shapes + leaf_shapes)
     int8_rows = [check_int8(dev, s) for s in leaf_shapes]
     # the (g, Γ) payload of fim_lbfgs (2d) and the delta of fedavg_sgd (d)
     # at k = ceil(0.1 n), a size that is no multiple of the 4096-element
-    # tile, and the ends k = 1 and k = n
+    # tile, the ends k = 1 and k = n, and one n above the cluster's capacity
+    # (the four-launch path)
     d = sum(leaf_sizes)
-    topk_rows = [check_topk(dev, n, k) for n, k in (
+    cluster, capacity = codec_ops.cluster_shape(dev)
+    emit({"phase": "topk_cluster", "cluster": cluster, "capacity": capacity})
+    require(capacity >= 2 * d, f"topk_select: the cluster path holds "
+            f"{capacity} elements, fewer than the main path's {2 * d}")
+    above = capacity + 12_345
+    topk_rows = [check_topk(dev, n, k, cluster, capacity) for n, k in (
         (2 * d, math.ceil(0.1 * 2 * d)), (d, math.ceil(0.1 * d)),
-        (100_003, 10_001), (2 * d, 1), (2 * d, 2 * d))]
+        (100_003, 10_001), (2 * d, 1), (2 * d, 2 * d),
+        (above, math.ceil(0.1 * above)))]
     # flash attention: granite-8b's prefill first (the row the kernels line
     # reports for the bf16 tensor-core kernel), then decode-vs-prefill's f32
     # call (its row for the f32 SIMT kernel), hubert-xlarge's in bf16 and
@@ -998,25 +1079,23 @@ def main() -> int:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
-    int8_tree = {"shape": [list(s) for s in leaf_shapes],
-                 "kernel_ms": sum(r["kernel_ms"] for r in int8_rows),
-                 "kernel_call_ms": sum(r["kernel_call_ms"] for r in int8_rows),
-                 "plain_ms": sum(r["plain_ms"] for r in int8_rows),
-                 "bound_ms": sum(r["bound_ms"] for r in int8_rows),
-                 "bound_by": "bytes", "library_ms": None,
-                 "max_err": max(r["max_err"] for r in int8_rows)}
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         entry("fim_diag", "src/repro_torch/csrc/fim_diag.cu",
               "src/repro/kernels/fim_diag.py:40", fim_rows, total["fim_diag"]),
         entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
               "src/repro/kernels/vlbfgs.py:40", gram_rows, total["vlbfgs_gram"]),
-        entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
-              "src/repro/kernels/codec_ops.py:69", [int8_tree],
-              total["int8_roundtrip"]),
-        entry("topk_select", "src/repro_torch/csrc/topk.cu",
-              "src/repro/kernels/codec_ops.py:133", topk_rows,
-              total["topk_select"]),
+        {**entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
+                 "src/repro/kernels/codec_ops.py:69",
+                 [int8_payload, *int8_rows], total["int8_roundtrip"]),
+         "launches_are": "launch pairs (int8_amax + int8_apply), one a "
+                         "client payload"},
+        {**entry("topk_select", "src/repro_torch/csrc/topk.cu",
+                 "src/repro/kernels/codec_ops.py:133", topk_rows,
+                 total["topk_select"]),
+         "cluster_size": cluster, "cluster_launches":
+             total["topk_select_cluster"],
+         "four_launch_ms": topk_rows[0]["four_launch_ms"]},
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:106",
               [r for r in flash_rows if r["path"] == "tensor_core"],

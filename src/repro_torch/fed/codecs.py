@@ -12,7 +12,8 @@ Registered here:
 
   * ``none``    — float32 passthrough (4 bytes/element);
   * ``int8``    — per-tensor symmetric int8 with stochastic rounding
-    (1 byte/element), through the CUDA kernel on CUDA tensors;
+    (1 byte/element), a whole payload through the CUDA kernel on CUDA
+    tensors;
   * ``topk:r``  — keep the ``ceil(r·n)`` largest-magnitude coordinates of
     the flattened payload (the bucketed threshold select, through the
     CUDA kernel on CUDA tensors); 8 bytes per kept element (value +
@@ -112,15 +113,15 @@ def dequantize_tree(q_tree, scales):
 class Int8Codec(PayloadCodec):
     """Per-tensor symmetric int8 with stochastic rounding: 4x fewer upload
     bytes, unbiased per round, no residual.  One ``torch.rand`` draw per
-    leaf in leaf order; the round-trip runs the CUDA kernel on CUDA tensors
-    (``kernels.ops.int8_roundtrip``)."""
+    leaf in leaf order; on CUDA tensors the whole payload goes through the
+    CUDA kernel in one launch pair (``kernels.ops.int8_roundtrip_leaves``)."""
 
     def wire_bytes(self, n_floats: float) -> float:
         return float(n_floats) * comm.BYTES_INT8
 
     def roundtrip(self, tree, generator, residual=None):
-        out = [kernel_ops.int8_roundtrip(leaf, generator, mode=self.kernels)
-               for leaf in tree_leaves(tree)]
+        out = kernel_ops.int8_roundtrip_leaves(tree_leaves(tree), generator,
+                                               mode=self.kernels)
         return tree_unflatten(tree, out), None
 
 

@@ -64,19 +64,38 @@ def int8_uniforms(x, generator: torch.Generator) -> torch.Tensor:
     return torch.rand(x.shape, generator=generator, device=x.device)
 
 
-def int8_roundtrip(x, generator: torch.Generator, mode: str = "auto"):
-    """Int8 stochastic-rounding quantize+dequantize of one payload tensor.
+def int8_roundtrip_leaves(leaves, generator: torch.Generator,
+                          mode: str = "auto") -> list:
+    """Int8 stochastic-rounding quantize+dequantize of every leaf of one
+    payload, each with its own scale.
 
     Draws the rounding uniforms from ``generator`` the same way on every
-    path, and computes the scale once for both, so kernel and plain
-    version round identically (bit for bit)."""
-    if x.numel() == 0:
-        return x.float()
-    u = int8_uniforms(x, generator)
-    scale = ref.int8_scale(x)
-    if resolve(mode, x.device) == "plain":
-        return ref.int8_roundtrip_ref(x, u, scale)
-    return _codec.int8_roundtrip(x.float().contiguous(), u, scale)
+    path (``int8_uniforms``, once a non-empty leaf, in leaf order), so
+    kernel and plain version round identically (bit for bit).  The kernel
+    takes all leaves in one launch pair and computes the scales itself;
+    the plain version computes ``ref.int8_scale`` a leaf.  An empty leaf
+    comes back as ``x.float()``."""
+    leaves = list(leaves)
+    us = [int8_uniforms(x, generator) if x.numel() else None for x in leaves]
+    live = [i for i, u in enumerate(us) if u is not None]
+    out = [x.float() for x in leaves]
+    if not live:
+        return out
+    if resolve(mode, leaves[live[0]].device) == "plain":
+        for i in live:
+            out[i] = ref.int8_roundtrip_ref(leaves[i], us[i],
+                                            ref.int8_scale(leaves[i]))
+        return out
+    sent, _ = _codec.int8_roundtrip_leaves(
+        [leaves[i].float().contiguous() for i in live], [us[i] for i in live])
+    for i, t in zip(live, sent):
+        out[i] = t
+    return out
+
+
+def int8_roundtrip(x, generator: torch.Generator, mode: str = "auto"):
+    """``int8_roundtrip_leaves`` of the one-leaf payload ``[x]``."""
+    return int8_roundtrip_leaves([x], generator, mode)[0]
 
 
 def topk_select(flat, k: int, mode: str = "auto"):

@@ -18,8 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.kernels import (codec_ops, fim_diag,  # noqa: E402
                                  flash_attention, ops, ref, vlbfgs)
+from repro_torch.models import cnn  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -71,10 +74,98 @@ def test_int8_kernel_bit_identical_to_plain(cuda, shape):
     s = ref.int8_scale(x)
     assert float(s) == float(np.float32(float(x.abs().max())) / np.float32(127))
     before = codec_ops.LAUNCHES
-    got = codec_ops.int8_roundtrip(x, u, s)
+    (got,), scales = codec_ops.int8_roundtrip_leaves([x], [u])
     assert codec_ops.LAUNCHES == before + 1
     want = ref.int8_roundtrip_ref(x, u, s)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(scales.view(torch.int32), s.reshape(1).view(torch.int32))
+
+
+def _payload(dev, shapes, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn(s, generator=gen, device=dev) * 0.05 for s in shapes]
+    return xs, [torch.rand(s, generator=gen, device=dev) for s in shapes]
+
+
+def _int8_payload_check(xs, us, pairs):
+    """One call over the payload: ``pairs`` launch pairs, every leaf and
+    scale bit-identical to the per-leaf plain version (NaN where it has
+    NaN)."""
+    before = codec_ops.LAUNCHES
+    got, scales = codec_ops.int8_roundtrip_leaves(xs, us)
+    assert codec_ops.LAUNCHES == before + pairs
+    assert scales.shape == (len(xs),)
+    for i, (x, u, g) in enumerate(zip(xs, us, got)):
+        s = ref.int8_scale(x)
+        want = ref.int8_roundtrip_ref(x, u, s)
+        assert g.shape == x.shape
+        if bool(torch.isnan(want).any()):
+            torch.testing.assert_close(g, want, rtol=0, atol=0,
+                                       equal_nan=True)
+            torch.testing.assert_close(scales[i], s, rtol=0, atol=0,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(g.view(torch.int32), want.view(torch.int32)), i
+            assert torch.equal(scales[i].view(torch.int32),
+                               s.view(torch.int32)), i
+
+
+def _cnn_payload_shapes():
+    """The 16 leaves of fim_lbfgs's (g, Γ) payload on the F-MNIST CNN."""
+    shapes = [tuple(p.shape) for p in tree_leaves(
+        cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0)))]
+    return shapes + shapes
+
+
+def test_int8_payload_one_launch_pair_bit_identical(cuda):
+    xs, us = _payload(cuda, _cnn_payload_shapes(), 3)
+    xs[8:] = [x.square() * 1e-2 for x in xs[8:]]   # Fisher-like Γ leaves
+    _int8_payload_check(xs, us, 1)
+
+
+def test_int8_payload_edge_leaves(cuda):
+    """An all-zero leaf (the 1e-12 floor), one element, ragged tails at the
+    block size, inf and NaN leaves (every output NaN, as the plain
+    version's; -inf too), beside ordinary leaves."""
+    shapes = [(5,), (1,), (2048,), (2049,), (4095,), (300, 17), (64,), (64,),
+              (64,)]
+    xs, us = _payload(cuda, shapes, 4)
+    xs[0] = torch.zeros_like(xs[0])
+    xs[6][3] = float("inf")
+    xs[7][60] = float("nan")
+    xs[8][0] = -float("inf")
+    _int8_payload_check(xs, us, 1)
+    got, scales = codec_ops.int8_roundtrip_leaves(xs[:1], us[:1])
+    assert torch.equal(got[0], torch.zeros_like(xs[0]))
+    assert float(scales[0]) == float(np.float32(1e-12) / np.float32(127))
+
+
+def test_int8_payload_split_over_launch_pairs(cuda):
+    """70 leaves: 64 in the first launch pair, 6 in the second."""
+    shapes = [(1 + 97 * i,) for i in range(70)]
+    xs, us = _payload(cuda, shapes, 5)
+    assert codec_ops.INT8_MAX_LEAVES == 64
+    _int8_payload_check(xs, us, 2)
+
+
+def test_int8_ops_payload_equals_per_leaf_calls(cuda):
+    """ops.int8_roundtrip_leaves (one launch pair, an empty leaf skipped)
+    equals per-leaf ops.int8_roundtrip and the plain path from the same
+    generator state, and leaves the generator where they do."""
+    shapes = [(300, 17), (0,), (1000,), (3, 3, 16, 32)]
+    xs, _ = _payload(cuda, shapes, 6)
+    gens = [torch.Generator(device=cuda).manual_seed(9) for _ in range(3)]
+    before = codec_ops.LAUNCHES
+    whole = ops.int8_roundtrip_leaves(xs, gens[0], mode="on")
+    assert codec_ops.LAUNCHES == before + 1
+    per_leaf = [ops.int8_roundtrip(x, gens[1], mode="on") for x in xs]
+    plain = ops.int8_roundtrip_leaves(xs, gens[2], mode="off")
+    for a, b, c in zip(whole, per_leaf, plain):
+        assert a.shape == b.shape == c.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert torch.equal(gens[0].get_state(), gens[2].get_state())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -83,10 +174,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                           torch.zeros(8, device=cuda), 0.0)
     with pytest.raises(ValueError):
         vlbfgs.gram(torch.zeros((65, 8), device=cuda))
-    with pytest.raises(ValueError):
-        codec_ops.int8_roundtrip(torch.zeros(4, device=cuda),
-                                 torch.zeros(5, device=cuda),
-                                 torch.ones((), device=cuda))
+    with pytest.raises(ValueError, match="shaped"):
+        codec_ops.int8_roundtrip_leaves([torch.zeros(4, device=cuda)],
+                                        [torch.zeros(5, device=cuda)])
+    with pytest.raises(ValueError, match="non-empty"):
+        codec_ops.int8_roundtrip_leaves([torch.zeros(0, device=cuda)],
+                                        [torch.zeros(0, device=cuda)])
+    with pytest.raises(ValueError, match="f32"):
+        codec_ops.int8_roundtrip_leaves(
+            [torch.zeros(4, device=cuda, dtype=torch.float64)],
+            [torch.zeros(4, device=cuda)])
+    with pytest.raises(ValueError, match="one u a leaf"):
+        codec_ops.int8_roundtrip_leaves([torch.zeros(4, device=cuda)], [])
 
 
 TOPK_CASES = [(8, 2), (35, 4), (1000, 100), (5000, 1), (2048, 2048),
@@ -95,9 +194,12 @@ TOPK_CASES = [(8, 2), (35, 4), (1000, 100), (5000, 1), (2048, 2048),
 
 
 def _topk_check(x, k):
-    before = codec_ops.TOPK_LAUNCHES
+    """One call, on the cluster path iff n is within its capacity."""
+    _, capacity = codec_ops.cluster_shape(x.device)
+    before = codec_ops.TOPK_LAUNCHES, codec_ops.TOPK_CLUSTER_LAUNCHES
     got = ops.topk_select(x, k, mode="on")
-    assert codec_ops.TOPK_LAUNCHES == before + 1
+    assert (codec_ops.TOPK_LAUNCHES, codec_ops.TOPK_CLUSTER_LAUNCHES) == (
+        before[0] + 1, before[1] + int(x.numel() <= capacity))
     want = ref.topk_select_ref(x, k)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert int(torch.count_nonzero(got)) == min(k, int(torch.count_nonzero(x)))
@@ -130,6 +232,70 @@ def test_topk_kernel_ties_zeros_and_signed_zeros(cuda):
     out = ops.topk_select(x, n, mode="on")
     assert torch.equal(torch.signbit(out[zero]), torch.signbit(x[zero]))
     assert bool(torch.signbit(x[zero]).any())
+
+
+def test_topk_cluster_capacity_holds_the_main_path(cuda):
+    """The card places a cluster of 16 (or 8), and the one-launch path takes
+    fim_lbfgs's (g, Γ) payload of the F-MNIST CNN."""
+    cluster, capacity = codec_ops.cluster_shape(cuda)
+    assert cluster in (8, 16)
+    assert capacity >= 413_844
+
+
+@pytest.mark.parametrize("k_of", ["one", "tenth", "all"])
+def test_topk_kernel_above_the_cluster_capacity(cuda, k_of):
+    """n above the capacity runs the four-launch path, bit-identical."""
+    _, capacity = codec_ops.cluster_shape(cuda)
+    n = capacity + 4097
+    x = torch.randn((n,), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda) * 1e-2
+    before = codec_ops.TOPK_CLUSTER_LAUNCHES
+    _topk_check(x, {"one": 1, "tenth": -(-n // 10), "all": n}[k_of])
+    assert codec_ops.TOPK_CLUSTER_LAUNCHES == before
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("n,k", [(8, 3), (33, 0), (57, 20), (1000, 100),
+                                 (4097, 4097), (206_922, 20_693),
+                                 (413_844, 41_385)])
+def test_topk_cluster_sizes_and_paths_agree(cuda, cluster, n, k):
+    """Both cluster sizes (where the card places them) and the four-launch
+    path give the plain version's output: ragged chunks (n = 33 and 57 at
+    8 blocks leave chunks of 0 and 1 elements), k = 0 and k = n."""
+    placed, capacity = codec_ops.cluster_shape(cuda, cluster)
+    if placed != cluster:
+        pytest.skip(f"this card places no cluster of {cluster} blocks")
+    x = torch.randn((n,), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda) * 1e-2
+    want = ref.topk_select_ref(x, k)
+    for got in (codec_ops.topk_select_cluster(x, k, cluster),
+                codec_ops.topk_select_tiles(x, k)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+def test_topk_cluster_reads_misaligned_views(cuda, offset):
+    """A view that starts 4, 8 or 12 bytes past a 16-byte boundary: the
+    chunks' ragged ends are loaded by threads, the rest by bulk copies."""
+    n = 100_003
+    buf = torch.randn((n + offset,),
+                      generator=torch.Generator(device=cuda).manual_seed(offset),
+                      device=cuda)
+    x = buf[offset:]
+    for k in (1, 10_001, n):
+        _topk_check(x, k)
+
+
+def test_topk_one_bucket_input(cuda):
+    """Every element in one bucket: the select is all ties, across every
+    chunk of the cluster."""
+    n = 206_922
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = (1.0 + torch.rand((n,), generator=gen, device=cuda) * 0.4) * torch.where(
+        torch.rand((n,), generator=gen, device=cuda) < 0.5, -1.0, 1.0)
+    assert int(((x.abs().view(torch.int32) >> 22).unique()).numel()) == 1
+    for k in (0, 1, 20_693, n - 1, n):
+        _topk_check(x, k)
 
 
 def test_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's examples import neither JAX nor the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+examples and ``tools/`` import neither JAX nor the reference package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -27,7 +28,8 @@ LLM_MODULES = ["repro_torch.configs.granite_8b", "repro_torch.configs.granite_20
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "examples").glob("torch_*.py")))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set:

@@ -182,8 +182,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         vlbfgs.gram(torch.zeros((3, 5)))
     with pytest.raises(ValueError, match="CUDA"):
-        codec_ops.int8_roundtrip(torch.zeros(3), torch.zeros(3),
-                                 torch.ones(()))
+        codec_ops.int8_roundtrip_leaves([torch.zeros(3)], [torch.zeros(3)])
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(torch.zeros((1, 2, 4, 32)),
                                         torch.zeros((1, 1, 4, 32)),
