@@ -13,7 +13,10 @@ f32 on the SIMT kernel).
 Phases (any failure raises and exits non-zero):
   1. device: the card's name and power limit, then the kernel build;
   2. each kernel against its plain version at the main path's shapes,
-     with CUDA-event times (see ``time_ms``) beside the card's bound: int8
+     with CUDA-event times (see ``time_ms``) beside the card's bound:
+     fim_diag over one client's 8 leaves at B = 600 in one launch (and each
+     leaf alone); the Gram read in place from an m = 10 history of the
+     CNN's leaves in one launch (and on a materialised basis); int8
      over fim_lbfgs's whole (g, Γ) payload in one launch pair (and each
      leaf alone); the top-k select on its one-launch cluster path, the
      four-launch path timed beside it, and one n above the cluster's
@@ -102,7 +105,8 @@ COHORT = int(RUN["participation"] * RUN["num_clients"])
 
 # tolerances, kernel vs plain version on the same inputs:
 #   fim_diag: both accumulate in f32 but in other orders -> 1e-5 rel/abs
-#   gram: the same, relative to the largest Gram entry -> 1e-5
+#   gram: the same, each entry (i, j) relative to sqrt(want_ii * want_jj),
+#   the Cauchy-Schwarz bound on the products it sums (gram_err) -> 1e-5
 #   int8: every step correctly rounded on both paths -> bit-identical
 FIM_TOL = 1e-5
 GRAM_TOL = 1e-5
@@ -277,25 +281,154 @@ def check_fim_diag(dev, B, D, dtype):
     return row
 
 
+def gram_err(got, want) -> float:
+    """max over (i, j) of |got_ij - want_ij| / sqrt(want_ii * want_jj): each
+    entry against the size of the products it sums, so an entry far below
+    the largest (a history row's against another) is held as tightly as
+    its own rows allow."""
+    d = want.diagonal().clamp_min(0).sqrt()
+    scale = torch.outer(d, d).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got - want).abs() / scale).max())
+
+
 def check_gram(dev, n, D):
     gen = torch.Generator(device=dev).manual_seed(n * 13 + D)
     basis = torch.randn((n, D), generator=gen, device=dev)
     got = ops.vlbfgs_gram(basis, mode="on")
     want = ref.vlbfgs_gram_ref(basis)
     torch.cuda.synchronize()
-    scale = max(float(want.abs().max()), 1.0)
-    err = float((got - want).abs().max())
+    err, rel = float((got - want).abs().max()), gram_err(got, want)
     b_ms, by = bound_ms(n * D * 4 + n * n * 4, 2.0 * D * n * (n + 1) / 2)
     row = {"kernel": "vlbfgs_gram", "shape": [n, D], "dtype": "float32",
-           "max_err": err, "rel_err": err / scale, "tol": GRAM_TOL,
+           "max_err": err, "rel_err": rel, "tol": GRAM_TOL,
            **timings(lambda: ops.vlbfgs_gram(basis, mode="on"),
                      lambda: ref.vlbfgs_gram_ref(basis),
                      lambda: torch.matmul(basis, basis.T)),
            "bound_ms": b_ms, "bound_by": by}
     emit(row)
-    require(err / scale <= GRAM_TOL,
-            f"vlbfgs_gram {n}x{D}: relative err {err / scale} > {GRAM_TOL}")
+    require(rel <= GRAM_TOL,
+            f"vlbfgs_gram {n}x{D}: relative err {rel} > {GRAM_TOL}")
     require(bool(torch.equal(got, got.T)), "vlbfgs_gram: not symmetric")
+    return row
+
+
+def check_fim_leaves(dev, B, shapes):
+    """One client's Fisher diagonal in one call, as core/fim makes it:
+    every (B, D_i) leaf in one launch, no old (zeros) and ema = 0; each leaf
+    held to the plain version at FIM_TOL, and a second call bit-equal (the
+    kernel's fixed summation order).  The bound reads every gradient once
+    and writes the results; no single PyTorch call computes it."""
+    gen = torch.Generator(device=dev).manual_seed(B)
+    grads = [torch.randn((B, math.prod(s)), generator=gen, device=dev)
+             for s in shapes]
+    before = fim_diag.LAUNCHES
+    got = ops.fim_diag_update_leaves(grads, None, 0.0, mode="on")
+    launches = fim_diag.LAUNCHES - before
+    again = ops.fim_diag_update_leaves(grads, None, 0.0, mode="on")
+    want = [ref.fim_diag_ref(g, None, 0.0) for g in grads]
+    torch.cuda.synchronize()
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    ok = all(bool(torch.allclose(a, w, rtol=FIM_TOL, atol=FIM_TOL))
+             for a, w in zip(got, want))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    D = sum(g.shape[1] for g in grads)
+    b_ms, by = bound_ms(B * D * 4 + D * 4, 2.0 * B * D + D)
+    row = {"kernel": "fim_diag", "call": "one client, all leaves",
+           "shape": [B, D], "leaves": [list(s) for s in shapes],
+           "dtype": "float32", "launches_a_call": launches, "max_err": err,
+           "tol": FIM_TOL, "deterministic": same,
+           **timings(lambda: ops.fim_diag_update_leaves(grads, None, 0.0,
+                                                        mode="on"),
+                     lambda: [ref.fim_diag_ref(g, None, 0.0) for g in grads]),
+           "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(launches == 1, f"fim_diag over {len(shapes)} leaves: {launches} "
+            "launches, want 1")
+    require(ok, f"fim_diag leaves at B={B}: max err {err} > {FIM_TOL}")
+    require(same, "fim_diag leaves: two calls differ")
+    return row
+
+
+def gram_faults(s, y, g, want) -> dict:
+    """Controls for the Gram gate: the kernel run on histories with one
+    defect planted, each as a kernel with that defect would read the true
+    history, held to the true history's Gram ``want``.  -> fault -> its
+    gram_err and, for comparison, its error relative to max|want| (a gate
+    on the largest entry)."""
+    odd = [i for i, a in enumerate(g) if a.numel() % 4]  # rows off 16 bytes
+    wide = max(range(len(g)), key=lambda i: g[i].numel())
+
+    def zero_odd_rows(leaves):
+        out = [a.clone() for a in leaves]
+        for i in odd:
+            out[i][1::2] = 0
+        return out
+
+    def only_wide(leaves):
+        return [a if i == wide else torch.zeros_like(a)
+                for i, a in enumerate(leaves)]
+
+    planted = {
+        # the 4-byte copies of the misaligned rows never land
+        "misaligned_odd_rows_zeroed": (zero_odd_rows(s), zero_odd_rows(y), g),
+        # only the widest leaf of the history is read
+        "history_narrow_leaves_dropped": (only_wide(s), only_wide(y), g),
+        # the y row group read from s's rows
+        "y_read_as_s": (s, s, g),
+    }
+    scale = float(want.abs().max())
+    out = {}
+    for name, (fs, fy, fg) in planted.items():
+        got = ops.vlbfgs_gram_leaves(fs, fy, fg, mode="on")
+        out[name] = {"rel_err": gram_err(got, want),
+                     "rel_to_max_entry": float((got - want).abs().max()) / scale}
+    return out
+
+
+def check_gram_leaves(dev, m, shapes):
+    """The server step's Gram as core/lbfgs makes it: read in place from an
+    m-slot history of the leaves (s, y: (m, *shape)) and g's leaves, one
+    launch; held to the plain version on the materialised basis at
+    GRAM_TOL (gram_err), exactly symmetric, a second call bit-equal; the
+    gate must reject each fault that gram_faults plants.  The library call
+    is basis @ basis.T on that basis (built outside the timing)."""
+    gen = torch.Generator(device=dev).manual_seed(m)
+    s = [torch.randn((m, *sh), generator=gen, device=dev) * 1e-2
+         for sh in shapes]
+    y = [a * (0.5 + 1.5 * torch.rand(a.shape, generator=gen, device=dev))
+         for a in s]
+    g = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    basis = torch.cat([torch.cat([a.reshape(m, -1) for a in s], 1),
+                       torch.cat([a.reshape(m, -1) for a in y], 1),
+                       torch.cat([a.reshape(-1) for a in g])[None]])
+    before = vlbfgs.LAUNCHES
+    got = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    launches = vlbfgs.LAUNCHES - before
+    again = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    want = ref.vlbfgs_gram_ref(basis)
+    torch.cuda.synchronize()
+    err, rel = float((got - want).abs().max()), gram_err(got, want)
+    faults = gram_faults(s, y, g, want)
+    n, D = basis.shape
+    b_ms, by = bound_ms(n * D * 4 + n * n * 4, 2.0 * D * n * (n + 1) / 2)
+    row = {"kernel": "vlbfgs_gram", "call": "read in place from an m-slot "
+           "history", "shape": [n, D], "m": m, "leaves": len(shapes),
+           "dtype": "float32", "launches_a_call": launches, "max_err": err,
+           "rel_err": rel, "tol": GRAM_TOL, "planted_faults": faults,
+           **timings(lambda: ops.vlbfgs_gram_leaves(s, y, g, mode="on"),
+                     lambda: ops.vlbfgs_gram_leaves(s, y, g, mode="off"),
+                     lambda: torch.matmul(basis, basis.T)),
+           "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(launches == 1, f"vlbfgs_gram leaves: {launches} launches, want 1")
+    require(rel <= GRAM_TOL, f"vlbfgs_gram leaves m={m}: relative "
+            f"err {rel} > {GRAM_TOL}")
+    require(bool(torch.equal(got, got.T)), "vlbfgs_gram leaves: not symmetric")
+    require(bool(torch.equal(got, again)), "vlbfgs_gram leaves: two calls "
+            "differ")
+    for name, f in faults.items():
+        require(f["rel_err"] > GRAM_TOL, f"vlbfgs_gram gate: planted fault "
+                f"{name} passes ({f['rel_err']} <= {GRAM_TOL})")
     return row
 
 
@@ -505,12 +638,13 @@ def expected_ledger(plan, rounds: int, cohort: int) -> dict:
             "scalar_KB_per_round": scal / rounds / 1e3}
 
 
-def expected_launches(alg: str, compress: str, n_leaves: int, rounds: int,
+def expected_launches(alg: str, compress: str, rounds: int,
                       cohort: int) -> dict:
     """Kernel launches the code of ``alg`` implies for a run without
     FedOVA (whose counts depend on each client's label set)."""
-    fim = {"fim_lbfgs": n_leaves * cohort * rounds,
-           "feddane": n_leaves * cohort * rounds}.get(alg, 0)
+    # fim_diag: one launch a client grad_fim call, all leaves at once
+    fim = {"fim_lbfgs": cohort * rounds,
+           "feddane": cohort * rounds}.get(alg, 0)
     # one int8 launch pair a client payload; every main-path top-k call on
     # the one-launch cluster path
     topk = cohort * rounds if compress == TOPK else 0
@@ -573,7 +707,7 @@ def main_path(train, test, compress: str, alg: str = "fim_lbfgs"):
         train, test, alg, compress, ROUNDS)
     acc = run.evaluate()
     n_leaves = len(tree_leaves(run.params))
-    want = expected_launches(alg, compress, n_leaves, ROUNDS, COHORT)
+    want = expected_launches(alg, compress, ROUNDS, COHORT)
     emit({"phase": "main_path", "algorithm": alg, "compress": compress,
           "d": run.strategy.n_params(), "leaves": n_leaves,
           "cohorts": [h["cohort"] for h in history],
@@ -708,17 +842,15 @@ def other_strategy(train, test, alg: str) -> dict:
     overrides = STRATEGY_OVERRIDES.get(alg, {})
     run, history, setup_s, round_s, launches, cohorts = drive(
         train, test, alg, "none", rounds, **overrides)
-    n_leaves = len(tree_leaves(cnn.init(FMNIST_CNN,
-                                        torch.Generator().manual_seed(0))))
     if alg == "fedova_lbfgs":
-        # one grad_fim (n_leaves fim_diag) and one FIM-L-BFGS step (one
+        # one grad_fim (one fim_diag launch) and one FIM-L-BFGS step (one
         # Gram) per class present in each selected client's data
         trained = sum(len(np.unique(train.y[run.partition[c]]))
                       for cohort in cohorts for c in cohort)
         want = {**dict.fromkeys(COUNTERS, 0),
-                "fim_diag": n_leaves * trained, "vlbfgs_gram": trained}
+                "fim_diag": trained, "vlbfgs_gram": trained}
     else:
-        want = expected_launches(alg, "none", n_leaves, rounds, COHORT)
+        want = expected_launches(alg, "none", rounds, COHORT)
     row = {"phase": "strategy", "algorithm": alg, "overrides": overrides,
            "losses": [h["loss"] for h in history], "setup_s": setup_s,
            "round_s": round_s, "steady_round_s": round_s[-1],
@@ -987,13 +1119,17 @@ def main() -> int:
     # phase 2: kernels against their plain versions at the main path's shapes
     leaf_shapes = [tuple(p.shape) for p in
                    tree_leaves(cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0)))]
-    # a client of ~600 examples: one (600, D) call per leaf, fc0.w first
+    # a client of ~600 examples: all 8 leaves in one call (the row the
+    # kernels line reports), then one (600, D) call per leaf, fc0.w first
     leaf_sizes = sorted({math.prod(s) for s in leaf_shapes}, reverse=True)
-    fim_rows = [check_fim_diag(dev, 600, D, torch.float32)
-                for D in leaf_sizes]
+    fim_rows = [check_fim_leaves(dev, 600, leaf_shapes)]
+    fim_rows += [check_fim_diag(dev, 600, D, torch.float32)
+                 for D in leaf_sizes]
     fim_rows.append(check_fim_diag(dev, 257, 2049, torch.bfloat16))
-    gram_rows = [check_gram(dev, 21, 206_922),
-                 check_gram(dev, 21, 10_001)]
+    # the Gram read in place from an m = 10 history of the CNN's leaves
+    # (the row the kernels line reports), then on a materialised basis
+    gram_rows = [check_gram_leaves(dev, 10, leaf_shapes),
+                 check_gram(dev, 21, 206_922), check_gram(dev, 21, 10_001)]
     # int8: fim_lbfgs's (g, Γ) payload (16 leaves) in one call, the row
     # the kernels line reports; then each leaf alone, for comparison
     int8_payload = check_int8_payload(dev, leaf_shapes + leaf_shapes)
@@ -1081,10 +1217,14 @@ def main() -> int:
 
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": [
-        entry("fim_diag", "src/repro_torch/csrc/fim_diag.cu",
-              "src/repro/kernels/fim_diag.py:40", fim_rows, total["fim_diag"]),
-        entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
-              "src/repro/kernels/vlbfgs.py:40", gram_rows, total["vlbfgs_gram"]),
+        {**entry("fim_diag", "src/repro_torch/csrc/fim_diag.cu",
+                 "src/repro/kernels/fim_diag.py:40", fim_rows,
+                 total["fim_diag"]),
+         "launches_are": "one a client grad_fim call, all leaves"},
+        {**entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
+                 "src/repro/kernels/vlbfgs.py:40", gram_rows,
+                 total["vlbfgs_gram"]),
+         "launches_are": "one a server step, read in place from the history"},
         {**entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
                  "src/repro/kernels/codec_ops.py:69",
                  [int8_payload, *int8_rows], total["int8_roundtrip"]),

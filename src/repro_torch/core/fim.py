@@ -2,7 +2,8 @@
 
 Port of ``repro.core.fim``: the exact per-example diagonal (vmapped
 per-example gradients, mean of squares) and the microbatch proxy, both
-through the fused Γ op (``kernels.ops.fim_diag_update``), plus the EMA
+through the fused Γ op over every leaf at once
+(``kernels.ops.fim_diag_update_leaves``), plus the EMA
 state and the smoothing y_t = (Γ̄ + λI) s_t of Alg. 1 line 8.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
 class FimState(NamedTuple):
@@ -31,12 +32,19 @@ def init(params, dtype=torch.float32) -> FimState:
     )
 
 
-def _leaf_diag(g2: torch.Tensor, kernels: str) -> torch.Tensor:
-    """(B, D) per-example gradients -> (D,) mean of squares through the
-    fused Γ op; with old=0 and ema=0 it is exactly mean_b g²."""
-    zeros = torch.zeros((g2.shape[1],), dtype=torch.float32, device=g2.device)
-    return kernel_ops.fim_diag_update(g2.contiguous(), zeros, 0.0,
-                                      mode=kernels)
+def _diag_tree(g2_tree, batch_leading: bool, kernels: str):
+    """Mean over the leading axis of the squares of every leaf of a
+    gradient tree, through one fused Γ call for the whole tree (one kernel
+    launch on the card); with no old and ema=0 it is exactly mean_b g².
+    ``batch_leading``: leaves are (B, ...) per-example gradients, else
+    one gradient (a B=1 instance)."""
+    leaves = tree_leaves(g2_tree)
+    mats = [(g.reshape(g.shape[0], -1) if batch_leading
+             else g.reshape(1, -1)).contiguous() for g in leaves]
+    outs = kernel_ops.fim_diag_update_leaves(mats, None, 0.0, mode=kernels)
+    return tree_unflatten(g2_tree, [
+        o.reshape(g.shape[1:] if batch_leading else g.shape)
+        for o, g in zip(outs, leaves)])
 
 
 def per_example_diag(per_example_loss: Callable, params, xs, ys,
@@ -44,17 +52,13 @@ def per_example_diag(per_example_loss: Callable, params, xs, ys,
     """Exact diagonal empirical Fisher: mean over the batch of squared
     per-example gradients.  ``per_example_loss(params, x, y) -> scalar``."""
     grads = vmap(grad(per_example_loss), in_dims=(None, 0, 0))(params, xs, ys)
-    return tree_map(
-        lambda g: _leaf_diag(g.reshape(g.shape[0], -1),
-                             kernels).reshape(g.shape[1:]), grads)
+    return _diag_tree(grads, True, kernels)
 
 
 def microbatch_diag(grad_tree, kernels: str = "off"):
     """Squared (micro)batch gradient — one term of the accumulation mean
     (a B=1 instance of the same fused Γ op)."""
-    return tree_map(
-        lambda g: _leaf_diag(g.reshape(1, -1), kernels).reshape(g.shape),
-        grad_tree)
+    return _diag_tree(grad_tree, False, kernels)
 
 
 def update(state: FimState, new_diag, ema: float) -> FimState:

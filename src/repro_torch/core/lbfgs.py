@@ -144,16 +144,15 @@ def combine(h: History, g, delta: torch.Tensor):
 
 
 def _gram_via_kernel(h: History, g, kernels: str) -> torch.Tensor:
-    """Gram matrix through the hand-written kernel: materialise the
-    (2m+1, D) f32 basis [s_0.., y_0.., g] in leaf order, so one launch
-    reads each basis element once."""
-    def rows(tree):
-        return torch.cat([leaf.reshape(leaf.shape[0], -1).float()
-                          for leaf in tree_leaves(tree)], dim=1)
+    """Gram matrix through the hand-written kernel, which reads the basis
+    [s_0.., y_0.., g] in place from the history's (m, ...) leaves and g's
+    leaves in one launch (the reference concatenates the (2m+1, D) basis
+    first, for one Pallas call)."""
+    def f32(tree):
+        return [leaf.float().contiguous() for leaf in tree_leaves(tree)]
 
-    gflat = torch.cat([leaf.reshape(-1).float() for leaf in tree_leaves(g)])
-    basis = torch.cat([rows(h.s), rows(h.y), gflat[None]], dim=0)
-    return kernel_ops.vlbfgs_gram(basis.contiguous(), mode=kernels)
+    return kernel_ops.vlbfgs_gram_leaves(f32(h.s), f32(h.y), f32(g),
+                                         mode=kernels)
 
 
 def direction(h: History, g, kernels: str = "off"):

@@ -25,7 +25,7 @@ def make_grad_fim_fn(loss_fn: Callable, per_example_loss: Callable | None,
     loss_fn(params, batch) -> scalar; per_example_loss(params, x, y) ->
     scalar (needed for the exact Eq. 9 diagonal).  ``kernels``
     (FedConfig.kernels) routes the Fisher square+mean through the fused
-    CUDA op (kernels.ops.fim_diag_update)."""
+    CUDA op, all leaves in one launch (kernels.ops.fim_diag_update_leaves)."""
     value_grad = grad_and_value(loss_fn)
 
     def client_grad_fim(params, batch):

@@ -51,11 +51,44 @@ def fim_diag_update(grads, old_diag, ema: float, mode: str = "auto"):
     return _fim.fim_diag(grads, old_diag, ema)
 
 
+def fim_diag_update_leaves(grads, olds, ema: float,
+                           mode: str = "auto") -> list:
+    """The fused Γ update of every (B, D_i) leaf of one client: the kernel
+    takes all leaves in one launch; the plain version runs
+    ``ref.fim_diag_ref`` a leaf.  ``olds``: (D_i,) f32 tensors, or None for
+    zeros (with ``ema`` 0 the result is then exactly mean_b g²)."""
+    grads = list(grads)
+    if not grads:
+        return []
+    if resolve(mode, grads[0].device) == "plain":
+        olds = [None] * len(grads) if olds is None else list(olds)
+        return [ref.fim_diag_ref(g, o, ema) for g, o in zip(grads, olds,
+                                                             strict=True)]
+    return _fim.fim_diag_leaves(grads, olds, ema)
+
+
 def vlbfgs_gram(basis, mode: str = "auto"):
     """(2m+1, D) basis -> (2m+1, 2m+1) Gram matrix."""
     if resolve(mode, basis.device) == "plain":
         return ref.vlbfgs_gram_ref(basis)
     return _vl.gram(basis)
+
+
+def vlbfgs_gram_leaves(s_leaves, y_leaves, g_leaves, mode: str = "auto"):
+    """Gram matrix of the basis [s_0.., y_0.., g] of a history kept a leaf:
+    s and y leaves (m, *shape_i) in slot order, g leaves *shape_i, all f32.
+    The kernel reads them in place in one launch; the plain version
+    concatenates the (2m+1, D) basis in leaf order and runs
+    ``ref.vlbfgs_gram_ref``."""
+    s_leaves, y_leaves, g_leaves = list(s_leaves), list(y_leaves), list(g_leaves)
+    if resolve(mode, g_leaves[0].device) == "plain":
+        def rows(leaves):
+            return torch.cat([x.reshape(x.shape[0], -1) for x in leaves], 1)
+
+        basis = torch.cat([rows(s_leaves), rows(y_leaves),
+                           torch.cat([x.reshape(-1) for x in g_leaves])[None]])
+        return ref.vlbfgs_gram_ref(basis)
+    return _vl.gram_leaves(s_leaves, y_leaves, g_leaves)
 
 
 def int8_uniforms(x, generator: torch.Generator) -> torch.Tensor:

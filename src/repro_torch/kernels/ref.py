@@ -21,11 +21,15 @@ TOPK_SHIFT = 22
 NEG_INF = -1e30
 
 
-def fim_diag_ref(grads: torch.Tensor, old_diag: torch.Tensor,
+def fim_diag_ref(grads: torch.Tensor, old_diag: torch.Tensor | None,
                  ema: float) -> torch.Tensor:
     """grads: (B, D) per-example (or per-microbatch) gradients;
-    old_diag: (D,) f32 EMA state.  Returns ema*old + (1-ema)*mean(g²)."""
+    old_diag: (D,) f32 EMA state, or None for zeros.  Returns
+    ema*old + (1-ema)*mean(g²) (with None, (1-ema)*mean(g²): the same
+    values, since ema*0 + x is x)."""
     meansq = torch.mean(torch.square(grads.float()), dim=0)
+    if old_diag is None:
+        return (1.0 - ema) * meansq
     return ema * old_diag.float() + (1.0 - ema) * meansq
 
 

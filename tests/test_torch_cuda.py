@@ -6,8 +6,9 @@ runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fim_diag and the Gram sum in other orders than the plain
-versions (f32 accumulation), so 1e-5 relative (the Gram relative to its
-largest entry, against an f64 plain product); int8 and the top-k select
+versions (f32 accumulation), so 1e-5 relative (each Gram entry (i, j)
+relative to sqrt(G_ii G_jj), the size of the products it sums, against an
+f64 product); int8 and the top-k select
 are bit-identical; flash attention 2e-5 in f32 (tests/test_kernels.py's
 tolerance) and one bf16 ulp in bf16: both round an f32 result to bf16
 once, so 2^-7 relative (8 significant bits) plus 1e-5 absolute for
@@ -48,6 +49,89 @@ def test_fim_diag_kernel_matches_plain(cuda, B, D, dtype):
     assert fim_diag.LAUNCHES == before + 1
     torch.testing.assert_close(got, ref.fim_diag_ref(g, old, 0.9),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.fim_diag_update(g, old, 0.9, mode="on"))
+
+
+def _cnn_shapes():
+    """The 8 leaves of the F-MNIST CNN, in tree order."""
+    return [tuple(p.shape) for p in tree_leaves(
+        cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0)))]
+
+
+def _fim_leaves_check(grads, olds, ema):
+    """One launch a call, each leaf within 1e-5 of the plain version, and
+    a second call bit-equal."""
+    before = fim_diag.LAUNCHES
+    got = ops.fim_diag_update_leaves(grads, olds, ema, mode="on")
+    assert fim_diag.LAUNCHES == before + 1
+    again = ops.fim_diag_update_leaves(grads, olds, ema, mode="on")
+    plain = ops.fim_diag_update_leaves(grads, olds, ema, mode="off")
+    assert len(got) == len(grads)
+    for a, b, w, g in zip(got, again, plain, grads):
+        assert a.shape == (g.shape[1],) and a.dtype == torch.float32
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("B", [7, 600])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fim_diag_leaves_cnn_client_one_launch(cuda, B, dtype):
+    """The 8 leaves of one client of the F-MNIST CNN in one launch, no old
+    (the main path's call), then with an old diagonal and ema 0.9."""
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    grads = [torch.randn((B, int(np.prod(s))), generator=gen, device=cuda)
+             .to(getattr(torch, dtype)) for s in _cnn_shapes()]
+    _fim_leaves_check(grads, None, 0.0)
+    olds = [torch.rand((g.shape[1],), generator=gen, device=cuda)
+            for g in grads]
+    _fim_leaves_check(grads, olds, 0.9)
+
+
+@pytest.mark.parametrize("D", [1, 10, 13])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fim_diag_leaves_narrow_and_misaligned(cuda, D, dtype):
+    """D = 10 f32: every odd row starts 8 bytes off a 16-byte boundary, so
+    those rows load element by element; a base off 16 bytes too (a view
+    one element into a buffer)."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    buf = torch.randn((33 * D + 1,), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    shifted = buf[1:].view(33, D)
+    _fim_leaves_check([shifted, buf[:33 * D].view(33, D)], None, 0.0)
+
+
+def test_fim_diag_leaves_no_old_is_zeros_bit_for_bit(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    grads = [torch.randn((600, int(np.prod(s))), generator=gen, device=cuda)
+             for s in _cnn_shapes()]
+    none = _fim_leaves_check(grads, None, 0.0)
+    zeros = _fim_leaves_check(
+        grads, [torch.zeros(g.shape[1], device=cuda) for g in grads], 0.0)
+    for a, b in zip(none, zeros):
+        assert torch.equal(a, b)
+
+
+def test_fim_diag_leaves_empty_launches_nothing(cuda):
+    before = fim_diag.LAUNCHES
+    assert ops.fim_diag_update_leaves([], None, 0.0, mode="on") == []
+    got = ops.fim_diag_update_leaves([torch.zeros((4, 0), device=cuda)],
+                                     None, 0.0, mode="on")
+    assert got[0].shape == (0,)
+    assert fim_diag.LAUNCHES == before
+
+
+def test_fim_diag_leaves_beyond_one_table(cuda):
+    """70 leaves: two launches (64 leaves a table)."""
+    gen = torch.Generator(device=cuda).manual_seed(70)
+    grads = [torch.randn((9, 1 + i), generator=gen, device=cuda)
+             for i in range(70)]
+    before = fim_diag.LAUNCHES
+    got = ops.fim_diag_update_leaves(grads, None, 0.0, mode="on")
+    assert fim_diag.LAUNCHES == before + 2
+    for a, g in zip(got, grads):
+        torch.testing.assert_close(a, ref.fim_diag_ref(g, None, 0.0),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,D", [(5, 512), (21, 4096), (21, 10_001), (9, 64),
@@ -59,10 +143,111 @@ def test_gram_kernel_matches_plain(cuda, n, D):
     before = vlbfgs.LAUNCHES
     got = ops.vlbfgs_gram(basis, mode="on")
     assert vlbfgs.LAUNCHES == before + 1
-    want = ref.vlbfgs_gram_ref(basis.double()).float()
-    scale = max(float(want.abs().max()), 1.0)
-    torch.testing.assert_close(got / scale, want / scale, rtol=1e-5, atol=1e-5)
+    _assert_gram_close(got, basis)
+    assert torch.equal(got, ops.vlbfgs_gram(basis, mode="on"))
+
+
+def _gram_err(got, want):
+    """max over (i, j) of |got_ij - want_ij| / sqrt(want_ii want_jj)."""
+    d = want.diagonal().sqrt()
+    scale = torch.outer(d, d).clamp_min(torch.finfo(want.dtype).tiny)
+    return float(((got.to(want.dtype) - want).abs() / scale).max())
+
+
+def _assert_gram_close(got, basis):
+    """Each entry within 1e-5 of its Cauchy-Schwarz scale of the f64
+    product of the basis (so a history's small entries are held as tightly
+    as their rows allow), and exactly symmetric."""
+    b = basis.double()
+    assert _gram_err(got, b @ b.T) <= 1e-5
     assert torch.equal(got, got.T)
+
+
+def _history(cuda, shapes, m, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = [torch.randn((m, *sh), generator=gen, device=cuda) * 1e-2
+         for sh in shapes]
+    y = [a * (0.5 + 1.5 * torch.rand(a.shape, generator=gen, device=cuda))
+         for a in s]
+    g = [torch.randn(sh, generator=gen, device=cuda) for sh in shapes]
+    return s, y, g
+
+
+def _basis(s, y, g):
+    m = s[0].shape[0]
+    return torch.cat([torch.cat([a.reshape(m, -1) for a in s], 1),
+                      torch.cat([a.reshape(m, -1) for a in y], 1),
+                      torch.cat([a.reshape(-1) for a in g])[None]])
+
+
+def _gram_leaves_check(s, y, g, launches=1):
+    m = s[0].shape[0]
+    before = vlbfgs.LAUNCHES
+    got = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    assert vlbfgs.LAUNCHES == before + launches
+    _assert_gram_close(got, _basis(s, y, g))
+    assert torch.equal(got, ops.vlbfgs_gram_leaves(s, y, g, mode="on"))
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 10])
+def test_gram_leaves_cnn_history_one_launch(cuda, m):
+    """Read in place from an m-slot history of the CNN's 8 leaves: at
+    m = 10 the (10,) leaf's odd rows start 8 bytes off a 16-byte boundary."""
+    _gram_leaves_check(*_history(cuda, _cnn_shapes(), m, seed=m))
+
+
+def test_gram_leaves_narrow_leaves_and_misaligned_bases(cuda):
+    shapes = [(1,), (10,), (3, 3), (7, 5), (4097,)]
+    s, y, g = _history(cuda, shapes, 4, seed=11)
+    # a view one element into a buffer: every row of that group is off
+    buf = torch.randn((4 * 4097 + 1,), device=cuda)
+    s[-1] = buf[1:].view(4, 4097)
+    _gram_leaves_check(s, y, g)
+
+
+def test_gram_leaves_match_the_basis_entry_point(cuda):
+    """The history read in place and the same basis materialised go
+    through one kernel: equal to the same tolerance, each deterministic."""
+    s, y, g = _history(cuda, _cnn_shapes(), 10, seed=3)
+    got = _gram_leaves_check(s, y, g)
+    flat = ops.vlbfgs_gram(_basis(s, y, g), mode="on")
+    assert _gram_err(got, flat) <= 1e-5
+
+
+def test_gram_leaves_on_two_streams_at_once(cuda):
+    """Launches on two streams may overlap: each stream has its own pair
+    of counters, so both Grams are right and each equals its one-stream
+    result bit for bit."""
+    shapes = _cnn_shapes()
+    runs = [_history(cuda, shapes, 10, seed=20 + k) for k in range(2)]
+    alone = [ops.vlbfgs_gram_leaves(*h, mode="on") for h in runs]
+    streams = [torch.cuda.Stream(cuda) for _ in runs]
+    torch.cuda.synchronize(cuda)
+    outs = [[] for _ in runs]
+    for _ in range(20):
+        for k, (st, h) in enumerate(zip(streams, runs)):
+            with torch.cuda.stream(st):
+                outs[k].append(ops.vlbfgs_gram_leaves(*h, mode="on"))
+    torch.cuda.synchronize(cuda)
+    keys = {key for key in vlbfgs._TICKETS if key[0] == alone[0].device}
+    assert {(alone[0].device, st.cuda_stream) for st in streams} <= keys
+    for k, h in enumerate(runs):
+        _assert_gram_close(alone[k], _basis(*h))
+        for got in outs[k]:
+            assert torch.equal(got, alone[k])
+
+
+def test_gram_leaves_beyond_one_table_and_empty(cuda):
+    """70 leaves: two launches, summed; empty leaves launch nothing."""
+    s, y, g = _history(cuda, [(3 + i,) for i in range(70)], 2, seed=70)
+    _gram_leaves_check(s, y, g, launches=2)
+    before = vlbfgs.LAUNCHES
+    zero = ops.vlbfgs_gram_leaves([torch.zeros((2, 0), device=cuda)],
+                                  [torch.zeros((2, 0), device=cuda)],
+                                  [torch.zeros((0,), device=cuda)], mode="on")
+    assert vlbfgs.LAUNCHES == before
+    assert torch.equal(zero, torch.zeros((5, 5), device=cuda))
 
 
 @pytest.mark.parametrize("shape", [(7,), (1000,), (33, 129), (300, 17),
@@ -112,9 +297,7 @@ def _int8_payload_check(xs, us, pairs):
 
 def _cnn_payload_shapes():
     """The 16 leaves of fim_lbfgs's (g, Γ) payload on the F-MNIST CNN."""
-    shapes = [tuple(p.shape) for p in tree_leaves(
-        cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0)))]
-    return shapes + shapes
+    return _cnn_shapes() * 2
 
 
 def test_int8_payload_one_launch_pair_bit_identical(cuda):
@@ -174,6 +357,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                           torch.zeros(8, device=cuda), 0.0)
     with pytest.raises(ValueError):
         vlbfgs.gram(torch.zeros((65, 8), device=cuda))
+    with pytest.raises(ValueError, match="B ="):
+        fim_diag.fim_diag_leaves([torch.zeros((4, 8), device=cuda),
+                                  torch.zeros((5, 8), device=cuda)], None, 0.0)
+    with pytest.raises(ValueError, match="old diagonal"):
+        fim_diag.fim_diag_leaves([torch.zeros((4, 8), device=cuda)],
+                                 [torch.zeros(7, device=cuda)], 0.0)
+    with pytest.raises(ValueError, match="rows"):
+        vlbfgs.gram_leaves([torch.zeros((32, 3), device=cuda)],
+                           [torch.zeros((32, 3), device=cuda)],
+                           [torch.zeros(3, device=cuda)])
+    with pytest.raises(ValueError, match="contiguous f32"):
+        vlbfgs.gram_leaves([torch.zeros((2, 3), device=cuda)],
+                           [torch.zeros((2, 4), device=cuda)],
+                           [torch.zeros(3, device=cuda)])
     with pytest.raises(ValueError, match="shaped"):
         codec_ops.int8_roundtrip_leaves([torch.zeros(4, device=cuda)],
                                         [torch.zeros(5, device=cuda)])

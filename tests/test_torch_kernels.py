@@ -206,12 +206,3 @@ def test_int8_modes_agree_and_draw_the_same_stream():
     assert torch.equal(outs[0], outs[1])
     u = torch.rand(x.shape, generator=torch.Generator().manual_seed(3))
     assert torch.equal(outs[0], ref.int8_roundtrip_ref(x, u, ref.int8_scale(x)))
-
-
-def test_gram_split_covers_d_with_enough_blocks():
-    for D in (1, 63, 64, 10_001, 206_922):
-        chunk, blocks = vlbfgs.split(D, 132)
-        assert chunk % vlbfgs.TILE == 0
-        assert chunk * blocks >= D > chunk * (blocks - 1)
-        if D >= 132 * vlbfgs.TILE:
-            assert blocks >= 132

@@ -44,14 +44,13 @@ import argparse
 import ctypes
 import json
 import math
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's ~2 GHz SM clock
+from _breakdown import build_cuts, print_card, time_ms
+
 _STOP = "  if (n > 0) return;\n"
 # variant of csrc/topk.cu -> (text of the source, its replacement), in order
 CUTS = {
@@ -78,62 +77,6 @@ CUTS = {
 }
 
 
-def time_ms(fn, reps: int = 21, per: int = 10) -> tuple[float, float]:
-    """-> (device ms, call ms) of one call of ``fn``, medians over reps."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    device, call = [], []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        end.synchronize()
-        device.append(start.elapsed_time(end) / per)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        call.append(start.elapsed_time(end))
-    return statistics.median(device), statistics.median(call)
-
-
-def build_cuts(_build) -> dict:
-    """name -> the topk_select_cluster entry of each variant of topk.cu
-    (and of the source as it is), all compiled at once."""
-    src = (_build.CSRC / "topk.cu").read_text()
-    out = _build.BUILD_DIR / "codec_breakdown"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, cuts in {"whole": [], **CUTS}.items():
-        text = src
-        for old, new in cuts:
-            if text.count(old) != 1:
-                raise SystemExit(f"codec_breakdown: {name}: {old!r} is not "
-                                 "once in the source")
-            text = text.replace(old, new)
-        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
-        cu.write_text(text)
-        cmd = [_build.nvcc(), *_build._flags("topk"), "-o", str(so), str(cu)]
-        jobs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    entries = {}
-    for name, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"codec_breakdown: building {name} failed:\n{log}")
-        fn = ctypes.CDLL(str(so)).topk_select_cluster
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path,
@@ -154,10 +97,7 @@ def main() -> int:
     from repro_torch.models import cnn
     from repro_torch.utils.pytree import tree_leaves
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     label = args.label or str(args.root)
     _build.build_all(("codec_ops", "topk"))
     dev = torch.device("cuda")
@@ -221,7 +161,10 @@ def main() -> int:
           lambda: topk.roundtrip(payload, gen, residual))
 
     if args.cuts:
-        entries = build_cuts(_build)
+        entries = build_cuts(
+            _build, "codec_breakdown", "topk", CUTS, "topk_select_cluster",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int, ctypes.c_void_p])
         cluster, _ = codec_ops.cluster_shape(dev)
         for n in (413_844, 100_003):
             k = math.ceil(0.1 * n)
