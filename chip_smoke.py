@@ -32,6 +32,16 @@ Phases (any failure raises and exits non-zero):
      of fedavg_adam, fedprox, feddane, fedova and fedova_lbfgs under
      "none"; last the split of a round's time between the client step,
      the codec round-trips and the server step;
+  edge. the resource-constrained edge runtime (``FedConfig.edge``) under
+     fim_lbfgs at the same width and data, 5 rounds a run, each beside a
+     kernels="off" twin in lockstep: E1 energy_opt with enforced
+     deadlines under churn and SNR bursts, traced, on the per-client and
+     the fleet fast path; E2 adaptive_codec (top-k at per-client k); E3
+     buffered async under int8 with expiring grants.  Gates: the
+     simulation's fingerprint the same with and without kernels and on
+     both fleet paths, the state within phase 3's bounds every round,
+     E1's PlanAudit balanced, drops, several k and stale entries
+     present, and each round's launches those its decisions imply;
   4. LLM serving: granite-8b at full width in bf16 (36 layers, ~8.2 B
      parameters drawn on the card): prefill of 2 Zipf prompts of 4,096
      tokens through the tensor-core kernel (36 launches a call, each one
@@ -67,6 +77,7 @@ from repro_torch.configs import granite_8b, hubert_xlarge  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
+from repro_torch.edge import ChannelConfig, DeviceConfig, EdgeConfig  # noqa: E402
 from repro_torch.fed import codecs  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
@@ -74,6 +85,7 @@ from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
 from repro_torch.launch.train import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models import cnn, transformer  # noqa: E402
 from repro_torch.models import model as zoo  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 # launch counters of the kernel wrappers, by kernel name: (module, attribute);
@@ -184,6 +196,35 @@ DECODE_TOL = 1e-4
 # GPU spin that hides the host's enqueue cost while timing (~10 ms at the
 # H100's ~2 GHz SM clock)
 SLEEP_CYCLES = 20_000_000
+
+# phase "edge": examples/edge_noniid.py's wireless edge (2e5 Hz a client,
+# SNR 10 +- 3 dB with Rayleigh fading, a 1.5 Mb/s server link, tree
+# aggregation; devices of 1e9 FLOP/s mean, lognormal sigma 1.2) under
+# fim_lbfgs at phase 3's full width, 100 clients, 20 a round, non-IID-2
+EDGE_CHANNEL = ChannelConfig(bandwidth_hz=2e5, snr_db_mean=10.0,
+                             snr_db_std=3.0, fading="rayleigh",
+                             server_rate_bps=1.5e6, topology="tree")
+EDGE_FLEET = DeviceConfig(flops_per_s_mean=1e9, flops_per_s_sigma=1.2)
+EDGE_SCENARIO = "markov:p_drop=0.2,p_join=0.4|snr_burst:prob=0.4,scale=0.1"
+# the three runs, 5 rounds each.  E1: energy-optimal widths for a 60 s
+# deadline, every upload cut at 40 s (a 1.65 MB (g, Γ) payload takes ~19 s
+# at the nominal rate, so fades, bursts and slow devices bust it), under
+# churn and SNR bursts, traced, on the per-client path and on the fleet
+# fast path; E2: adaptive_codec's per-client top-k; E3: buffered async
+# under int8, uploads cut at 20 s so that granted spectrum expires
+EDGE_RUNS = {
+    "E1": dict(compress="none", traced=True, edge=dict(
+        scheduler="energy_opt", deadline_s=60.0, enforce_deadline_s=40.0,
+        min_clients=2, scenario=EDGE_SCENARIO)),
+    "E2": dict(compress="none", traced=False, edge=dict(
+        scheduler="adaptive_codec", adaptive_ratio=0.25,
+        adaptive_ratio_floor=0.02)),
+    "E3": dict(compress="int8", traced=False, edge=dict(
+        mode="async", buffer_size=10, staleness_alpha=0.5,
+        enforce_deadline_s=20.0)),
+}
+EDGE_LEDGER_FIELDS = ("down_bytes", "up_star_bytes", "up_tree_bytes",
+                      "scalar_bytes", "rounds")
 
 
 def reset_counts() -> None:
@@ -899,6 +940,265 @@ def round_breakdown(run) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase "edge": the resource-constrained edge runtime under fim_lbfgs
+# ---------------------------------------------------------------------------
+def edge_fingerprint(run) -> dict:
+    """tests/test_determinism.py's fingerprint (ledger, cohorts,
+    exclusions, drops, bandwidths, clock, energy); async runs add their
+    pending expiries, held spectrum and buffer sizes."""
+    edge = run.edge
+    fp = {"ledger": {f: getattr(run.ledger, f) for f in EDGE_LEDGER_FIELDS},
+          "drops": [tuple(sorted(d.dropped)) for d in edge.decisions],
+          "excluded": [tuple(sorted(d.excluded)) for d in edge.decisions],
+          "cohorts": [tuple(sorted(d.selected)) for d in edge.decisions],
+          "clock_s": edge.clock.now, "energy_j": edge.energy_j,
+          "bandwidths": [tuple(np.asarray(d.bandwidth()).tolist())
+                         for d in edge.decisions]}
+    if edge.async_agg is not None:
+        fp["expiry"] = sorted(edge._expiry.items())
+        fp["held"] = sorted(edge._held_hz.items())
+        fp["aggregated"] = [h.get("cohort") for h in edge.history]
+    return fp
+
+
+def edge_instrument(run) -> dict:
+    """Time the edge layer's host work on ``run`` (``sample_clients``,
+    which runs ``edge.decide``, and the round's finish: the sync clock or
+    the async dispatch and buffer pop) and record each popped async
+    entry's staleness."""
+    acc = {"edge_s": 0.0, "staleness": []}
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            acc["edge_s"] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    run.sample_clients = timed(run.sample_clients)
+    run._edge_sync_finish = timed(run._edge_sync_finish)
+    agg = run.edge.async_agg
+    if agg is not None:
+        run.edge.dispatch_async = timed(run.edge.dispatch_async)
+        run.edge.pop_async_buffer = timed(run.edge.pop_async_buffer)
+        pop = agg.pop_buffer
+
+        def popping(size=None):
+            version = agg.version
+            entries, w = pop(size)
+            acc["staleness"].extend(version - e.version for e in entries)
+            return entries, w
+
+        agg.pop_buffer = popping
+    return acc
+
+
+def edge_state_check(run_auto, run_off, compress: str, tag: str) -> dict:
+    """Phase 3's kernels="off" beside "auto" bounds on one round from the
+    same state: params, Fisher diagonal and history, the L-BFGS counters,
+    and the per-client top-k residuals (alike coordinates, swaps counted
+    against the client's own k)."""
+    a, b = run_auto.strategy.opt_state, run_off.strategy.opt_state
+    # adaptive_codec's per-client top-k keeps residuals under "none"
+    if compress == "int8":
+        tol = INT8_STATE_TOL
+    else:
+        tol = TOPK_STATE_TOL if run_auto._ef_residual else STEP_TOL
+    parts = {"params": (run_auto.params, run_off.params, tol),
+             "fim_diag": (a.fim.diag, b.fim.diag,
+                          FISHER_TOL if tol == STEP_TOL else tol),
+             "history_s": (a.history.s, b.history.s, tol),
+             "history_y": (a.history.y, b.history.y, tol)}
+    rel = {name: _rel(x, y) for name, (x, y, _) in parts.items()}
+    for name, (_, _, t) in parts.items():
+        require(rel[name] <= t, f"{tag}: kernels='off' vs 'auto': {name} "
+                f"differs by {rel[name]} > {t} (relative)")
+    for name, (x, y) in {"history_idx": (a.history.idx, b.history.idx),
+                         "history_count": (a.history.count, b.history.count),
+                         "fim_steps": (a.fim.steps, b.fim.steps),
+                         "step": (a.step, b.step)}.items():
+        require(int(x) == int(y), f"{tag}: kernels='off' vs 'auto': {name} "
+                f"{int(x)} != {int(y)}")
+    require(sorted(run_auto._ef_residual) == sorted(run_off._ef_residual),
+            f"{tag}: residuals kept for other clients")
+    dec, swaps = run_auto._decision, 0
+    for c in run_auto._ef_residual:
+        fa, fb = _flat(run_auto._ef_residual[c]), _flat(run_off._ef_residual[c])
+        alike = (fa == 0) == (fb == 0)
+        n_swap = int((~alike).sum())
+        codec = dec.codec_for(c) if c in dec.survivors else None
+        k = codec._k(fa.numel()) if codec is not None else 0
+        require(n_swap <= TOPK_SWAP_SHARE * max(k, 1),
+                f"{tag}: client {c}: {n_swap} coordinates swapped sides of "
+                f"the threshold (k = {k})")
+        r = float((fa - fb)[alike].norm()) / max(float(fb[alike].norm()),
+                                                 1e-30)
+        require(r <= TOPK_STATE_TOL, f"{tag}: client {c}: residual differs "
+                f"by {r} > {TOPK_STATE_TOL}")
+        rel["residual_max"] = max(rel.get("residual_max", 0.0), r)
+        swaps = max(swaps, n_swap)
+    rel["swaps_max"] = swaps
+    return rel
+
+
+def edge_run(train, test, name: str, card: str, fleet: str = "off") -> tuple:
+    """One edge run of ``ROUNDS`` fim_lbfgs rounds on the card, a
+    kernels="off" run beside it in lockstep (before each round its
+    strategy state, residuals and codec stream are set to the auto run's,
+    so each round is phase 3's one-round comparison from the same
+    state); the simulation must not notice the kernel mode, and each
+    round's launches must be those its decisions imply.  Returns (the
+    auto run, its launches, this run's row, its fingerprint)."""
+    spec = EDGE_RUNS[name]
+    compress = spec["compress"]
+    edge = EdgeConfig(channel=EDGE_CHANNEL, device=EDGE_FLEET, fleet=fleet,
+                      **spec["edge"])
+    runs = {}
+    for kernels in ("auto", "off"):
+        runs[kernels] = FederatedRun(
+            FMNIST_CNN, FedConfig(edge=edge, compress=compress,
+                                  kernels=kernels, **RUN),
+            train, test, "fim_lbfgs", device="cuda",
+            tracer=Tracer() if spec["traced"] and kernels == "auto" else None)
+    auto, off = runs["auto"], runs["off"]
+    tag = f"edge {name} fleet={fleet}"
+    acc = edge_instrument(auto)
+    total = dict.fromkeys(COUNTERS, 0)
+    want = dict.fromkeys(COUNTERS, 0)
+    rows, rel_max, coded_k = [], {}, set()
+    for t in range(ROUNDS):
+        off.strategy.load_state_dict(auto.strategy.state_dict())
+        off._ef_residual = {c: tree_map(torch.clone, r)
+                            for c, r in auto._ef_residual.items()}
+        off.codec_generator.set_state(auto.codec_generator.get_state())
+        edge_before = acc["edge_s"]
+        reset_counts()
+        t0 = time.perf_counter()
+        info = auto.round()
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        launches = read_counts()
+        reset_counts()
+        info_off = off.round()
+        torch.cuda.synchronize()
+        off_launches = read_counts()
+        require(not any(off_launches.values()),
+                f"{tag}: kernels='off' launched {off_launches}")
+        keys = ("cohort", "dropped", "aggregated", "wall_s", "sim_time_s",
+                "energy_j", "barrier_s")
+        require({k: info.get(k) for k in keys}
+                == {k: info_off.get(k) for k in keys},
+                f"{tag}: round {t + 1}: kernels='off' record {info_off} != "
+                f"{info}")
+        require(all(math.isfinite(v) for k, v in info.items()
+                    if isinstance(v, float)), f"{tag}: record {info}")
+        for key, r in edge_state_check(auto, off, compress, tag).items():
+            rel_max[key] = max(rel_max.get(key, 0.0), r)
+        # the launches this round's decisions imply: fim_diag one a landed
+        # client, topk_select one a landed client with its own codec, int8
+        # one a landed client's payload, the Gram one a non-empty server
+        # step (sync: anyone landed; async: the buffer popped entries)
+        dec = auto._decision
+        landed = list(dec.survivors)
+        coded = [dec.codec_for(c) for c in landed
+                 if dec.codec_for(c) is not None]
+        coded_k.update(codec._k(2 * auto.strategy.n_params())
+                       for codec in coded)
+        stepped = (info.get("aggregated", 0)
+                   if auto.edge.async_agg is not None else len(landed))
+        round_want = {**dict.fromkeys(COUNTERS, 0),
+                      "fim_diag": len(landed), "vlbfgs_gram": int(stepped > 0),
+                      "int8_roundtrip": len(landed) if compress == "int8" else 0,
+                      "topk_select": len(coded),
+                      "topk_select_cluster": len(coded)}
+        require(launches == round_want, f"{tag}: round {t + 1}: launches "
+                f"{launches} != {round_want} from its decisions")
+        for key in COUNTERS:
+            total[key] += launches[key]
+            want[key] += round_want[key]
+        rows.append({"round_s": round_s,
+                     "edge_s": acc["edge_s"] - edge_before, **info})
+    fp_auto, fp_off = edge_fingerprint(auto), edge_fingerprint(off)
+    require(fp_auto == fp_off, f"{tag}: kernels='off' fingerprint differs")
+    row = {"phase": "edge", "run": name, "card": card, "fleet": fleet,
+           "fleet_active": auto.edge.fleet_active(),
+           "policy": edge.scheduler, "mode": edge.mode, "compress": compress,
+           "rounds": ROUNDS,
+           "host_s_per_round": [r["round_s"] for r in rows],
+           "edge_host_s_per_round": [r["edge_s"] for r in rows],
+           "sim_time_s": [r.get("sim_time_s") for r in rows],
+           "wall_s": [r.get("wall_s") for r in rows],
+           "energy_j": [r.get("energy_j") for r in rows],
+           "barrier_s": [r.get("barrier_s") for r in rows],
+           "cohort": [r["cohort"] for r in rows],
+           "dropped": [r.get("dropped", 0) for r in rows],
+           "aggregated": [r.get("aggregated") for r in rows],
+           "losses": [r.get("loss") for r in rows],
+           "deadline_dropped_total": auto.edge.deadline_dropped_total,
+           "excluded_total": auto.edge.dropped_total,
+           "unavailable_total": auto.edge.unavailable_total,
+           "distinct_k": len(coded_k),
+           "k_range": [min(coded_k), max(coded_k)] if coded_k else None,
+           "stale_entries": sum(1 for s in acc["staleness"] if s > 0),
+           "launches": total, "launches_from_decisions": want,
+           "off_beside_auto_rel_max": rel_max,
+           "fingerprint_equal_kernels_off": True}
+    return auto, total, row, fp_auto
+
+
+def edge_phase(train, test, card: str) -> dict:
+    """E1 (per-client path and fleet fast path), E2 and E3: each beside
+    its kernels="off" twin, with the gates of the edge runtime: the
+    fleet fast path's fingerprint equal to the per-client path's, E1's
+    PlanAudit balanced against its ledger, each run exercising what it
+    claims.  Returns the launches of the four auto runs."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    fps = {}
+    for name, fleet in (("E1", "off"), ("E1", "on"), ("E2", "off"),
+                        ("E3", "off")):
+        run, launches, row, fps[name, fleet] = edge_run(train, test, name,
+                                                        card, fleet)
+        for key in COUNTERS:
+            total[key] += launches[key]
+        if name == "E1":
+            require(run.edge.fleet_active() == (fleet == "on"),
+                    f"E1 fleet={fleet}: fleet path active: "
+                    f"{run.edge.fleet_active()}")
+            audit = run.tracer.audit
+            audit.verify(run.ledger)
+            row["audit"] = {"rows": len(audit.rows),
+                            "shortfall_rows": len(audit.shortfall_rows()),
+                            "billed_total": audit.billed_total(),
+                            "planned_total": audit.planned_total(),
+                            "spans": len(run.tracer.spans),
+                            "events": len(run.tracer.events)}
+            require(len(audit.shortfall_rows())
+                    == run.edge.deadline_dropped_total,
+                    f"E1: {len(audit.shortfall_rows())} audit shortfall rows "
+                    f"for {run.edge.deadline_dropped_total} deadline drops")
+            require(run.edge.deadline_dropped_total > 0,
+                    "E1: no client was cut off at the deadline")
+        if name == "E2":
+            require(row["distinct_k"] >= 2,
+                    f"E2: {row['distinct_k']} distinct per-client k")
+        if name == "E3":
+            require(row["stale_entries"] > 0, "E3: no stale entry aggregated")
+            require(run.edge.deadline_dropped_total > 0,
+                    "E3: no dispatch expired")
+        emit(row)
+        del run
+    require(fps["E1", "on"] == fps["E1", "off"],
+            "E1: the fleet fast path's fingerprint differs from the "
+            "per-client path's")
+    emit({"phase": "edge_gates", "seconds": time.perf_counter() - t0,
+          "fleet_on_equals_off": True, "kernels_off_equals_auto": True,
+          "launches": total})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 4: LLM serving at full width
 # ---------------------------------------------------------------------------
 def timed_s(fn):
@@ -1105,7 +1405,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     dev = torch.device("cuda")
     # f32 everywhere: cuDNN would run f32 convolutions in TF32 by default
     torch.backends.cudnn.allow_tf32 = False
@@ -1190,6 +1491,11 @@ def main() -> int:
         count(other_strategy(train, test, alg)["launches"])
     round_breakdown(run_none)
     del run_none
+    free_cuda()
+
+    # phase "edge": the edge runtime's runs, their launches from fresh
+    # counts each round
+    count(edge_phase(train, test, card))
     free_cuda()
 
     # phase 4: LLM serving, each path from fresh counts

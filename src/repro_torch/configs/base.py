@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
+
+if TYPE_CHECKING:  # annotation only: repro_torch.edge stays an optional layer
+    from repro_torch.edge.runtime import EdgeConfig
 
 
 @dataclass(frozen=True)
@@ -143,7 +146,10 @@ class FedConfig:
                                  # device — see repro_torch.kernels.ops
     prox_mu: float = 0.1         # FedProx proximal coefficient
     seed: int = 0
-    edge: Optional[Any] = None   # the edge runtime is a later slice
+    # Optional resource-constrained edge simulation (repro_torch.edge):
+    # wireless channels, heterogeneous devices, scheduling, async
+    # aggregation.  None = the paper's cost-free instantaneous clients.
+    edge: Optional["EdgeConfig"] = None
 
     def __post_init__(self) -> None:
         # late import: fed.codecs imports the kernel layer
@@ -167,10 +173,6 @@ class FedConfig:
         if self.prox_mu < 0.0:
             raise ValueError(
                 f"FedConfig.prox_mu must be >= 0, got {self.prox_mu}")
-        if self.edge is not None:
-            raise NotImplementedError(
-                "FedConfig.edge: the edge runtime (repro.edge) is not ported "
-                "yet; it lands with the 'Edge and observability' slice")
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

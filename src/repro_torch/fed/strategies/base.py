@@ -60,6 +60,12 @@ class RoundPlan:
         """Per-client upload wire bytes per round (all phases)."""
         return float(sum(p.wire_up_bytes() for p in self.phases))
 
+    def nonagg_upload_bytes(self) -> float:
+        """The non-aggregatable share of upload_bytes (0 = fully summable
+        in-network; FedDANE's model phase makes it a strict subset)."""
+        return float(sum(p.wire_up_bytes()
+                         for p in self.phases if not p.aggregatable))
+
     def downlink_bytes(self) -> float:
         """Per-client broadcast bytes per round (all phases)."""
         return float(sum(p.down_floats * comm.BYTES_F32 for p in self.phases))

@@ -600,3 +600,68 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     wide = torch.zeros((1, 4, 64, 65), device=cuda)
     with pytest.raises(ValueError, match="layout"):   # rows of 65 floats
         flash_attention.flash_attention(wide[..., 1:], k, v)
+
+
+def _edge_fingerprint(run) -> dict:
+    """tests/test_determinism.py's fingerprint of an edge run."""
+    return {
+        "ledger": run.ledger.summary(),
+        "drops": [tuple(sorted(d.dropped)) for d in run.edge.decisions],
+        "excluded": [tuple(sorted(d.excluded)) for d in run.edge.decisions],
+        "cohorts": [tuple(sorted(d.selected)) for d in run.edge.decisions],
+        "bandwidths": [tuple(np.asarray(d.bandwidth()).tolist())
+                       for d in run.edge.decisions],
+        "codecs": [tuple(None if d.codec_for(i) is None
+                         else d.codec_for(i).spec() for i in d.selected)
+                   for d in run.edge.decisions],
+        "clock_s": run.edge.clock.now,
+        "energy_j": run.edge.energy_j,
+    }
+
+
+def test_adaptive_codec_edge_run_kernels_off_beside_auto(cuda):
+    """fim_lbfgs under the adaptive_codec policy (per-client top-k at the
+    ratio the channel schedules) at the reduced CNN: kernels="auto" runs
+    fim_diag, the Gram and topk_select at per-client k, kernels="off"
+    none of them, and the simulation's fingerprint is the same."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_models import reduced
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.edge import ChannelConfig, DeviceConfig, EdgeConfig
+    from repro_torch.fed.server import FederatedRun
+
+    edge = EdgeConfig(
+        channel=ChannelConfig(bandwidth_hz=2e5, snr_db_mean=10.0,
+                              snr_db_std=3.0, fading="rayleigh",
+                              server_rate_bps=50e6),
+        device=DeviceConfig(flops_per_s_mean=2e9, flops_per_s_sigma=1.0),
+        scheduler="adaptive_codec", adaptive_ratio=0.25,
+        adaptive_ratio_floor=0.02, deadline_s=5.0, enforce_deadline_s=1.4)
+    mcfg = reduced(FMNIST_CNN)
+    train, test = make_classification(mcfg, n_train=300, n_test=100, seed=0,
+                                      noise=0.5)
+    prints, launches = [], []
+    for kernels in ("auto", "off"):
+        fcfg = FedConfig(num_clients=8, participation=1.0, local_epochs=1,
+                         batch_size=32, noniid_l=2, seed=0, max_step_norm=0.5,
+                         fim_damping=0.05, fim_ema=0.9, kernels=kernels,
+                         edge=edge)
+        run = FederatedRun(mcfg, fcfg, train, test, "fim_lbfgs",
+                           device=cuda)
+        before = (fim_diag.LAUNCHES, vlbfgs.LAUNCHES, codec_ops.TOPK_LAUNCHES)
+        hist = run.run(rounds=3, eval_every=3)
+        torch.cuda.synchronize()
+        launches.append((fim_diag.LAUNCHES - before[0],
+                         vlbfgs.LAUNCHES - before[1],
+                         codec_ops.TOPK_LAUNCHES - before[2]))
+        prints.append(_edge_fingerprint(run))
+        assert all(np.isfinite(h["loss"]) for h in hist if "loss" in h)
+    assert prints[0] == prints[1]
+    assert launches[1] == (0, 0, 0)
+    landed = sum(len(d.survivors) for d in run.edge.decisions)
+    coded = sum(1 for d in run.edge.decisions for i in d.survivors
+                if d.codec_for(i) is not None)
+    steps = sum(1 for d in run.edge.decisions if d.survivors)
+    assert launches[0] == (landed, steps, coded)
+    ks = {c for row in prints[0]["codecs"] for c in row if c is not None}
+    assert len(ks) >= 2, ks

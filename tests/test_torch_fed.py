@@ -27,11 +27,13 @@ from repro.obs.trace import render_round as r_render  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN, reduced  # noqa: E402
 from repro_torch.data.synthetic import make_classification  # noqa: E402
+from repro_torch.edge import EdgeConfig  # noqa: E402
 from repro_torch.fed import codecs, comm  # noqa: E402
 from repro_torch.fed import server as pserver  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.fed.strategies import names as strategy_names  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.obs import trace as obs  # noqa: E402
 from repro_torch.utils.convert import from_jax, to_numpy  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves  # noqa: E402
 
@@ -304,8 +306,9 @@ def test_driver_refusals():
     assert strategy_names() == ["fedavg_adam", "fedavg_sgd", "feddane",
                                 "fedova", "fedova_lbfgs", "fedprox",
                                 "fim_lbfgs"]
-    with pytest.raises(NotImplementedError, match="edge"):
-        FedConfig(edge=object())
+    # the edge runtime is ported apart from the fleet engine's x64 backend
+    with pytest.raises(NotImplementedError, match="fleet_backend='jit'"):
+        FedConfig(edge=EdgeConfig(fleet_backend="jit"))
     train, test = make_classification(reduced(FMNIST_CNN), n_train=50,
                                       n_test=10, seed=0)
     with pytest.raises(ValueError, match="unknown federated strategy"):
@@ -334,8 +337,8 @@ def test_entry_point_pins_f32_convolutions_and_matmuls():
 
 def test_verbose_prints_the_reference_line():
     rec = {"round": 12, "loss": 0.123456, "accuracy": 0.5}
-    assert pserver.render_round(rec) == r_render(rec)
-    assert pserver.render_round({"round": 3}) == r_render({"round": 3})
+    assert obs.render_round(rec) == r_render(rec)
+    assert obs.render_round({"round": 3}) == r_render({"round": 3})
     train, test = make_classification(reduced(FMNIST_CNN), n_train=100,
                                       n_test=20, seed=0)
     run = FederatedRun(reduced(FMNIST_CNN), FedConfig(**RUN), train, test,
@@ -343,4 +346,4 @@ def test_verbose_prints_the_reference_line():
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         hist = run.run(rounds=2, eval_every=1, verbose=True)
-    assert out.getvalue().splitlines() == [pserver.render_round(h) for h in hist]
+    assert out.getvalue().splitlines() == [obs.render_round(h) for h in hist]

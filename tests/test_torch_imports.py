@@ -24,6 +24,17 @@ LLM_MODULES = ["repro_torch.configs.granite_8b", "repro_torch.configs.granite_20
                "repro_torch.models.layers", "repro_torch.models.attention",
                "repro_torch.models.transformer", "repro_torch.models.model",
                "repro_torch.utils.device"]
+# modules of the edge and observability slice
+EDGE_MODULES = ["repro_torch.edge", "repro_torch.edge.allocation",
+                "repro_torch.edge.async_agg", "repro_torch.edge.channel",
+                "repro_torch.edge.device", "repro_torch.edge.events",
+                "repro_torch.edge.runtime", "repro_torch.edge.scheduler",
+                "repro_torch.edge.scenario",
+                "repro_torch.edge.scenario.availability",
+                "repro_torch.edge.scenario.base",
+                "repro_torch.edge.scenario.faults", "repro_torch.obs",
+                "repro_torch.obs.export", "repro_torch.obs.metrics",
+                "repro_torch.obs.trace"]
 
 
 def _port_files():
@@ -64,9 +75,9 @@ def test_every_module_imports_with_jax_blocked():
         "leaked = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"
-        f"missing = set({LLM_MODULES!r}) - set(names)\n"
+        f"missing = set({LLM_MODULES + EDGE_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 40, names\n"
+        "assert len(names) >= 67, names\n"
         "print(len(names))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
