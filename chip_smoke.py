@@ -4,9 +4,10 @@ GPU: builds the hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives Algorithm 1
 (``FederatedRun(..., "fim_lbfgs")``), FedAvg and the paper's other
 strategies at the full width of the paper's F-MNIST CNN through the
-kernels, and serves granite-8b and hubert-xlarge at their full published
-widths through the flash-attention kernels (bf16 on the tensor-core kernel,
-f32 on the SIMT kernel).
+kernels, the cohort simulator, checkpoint/resume and the fleet engine's
+device backend, and serves granite-8b and hubert-xlarge at their full
+published widths through the flash-attention kernels (bf16 on the
+tensor-core kernel, f32 on the SIMT kernel).
 
     python3 chip_smoke.py
 
@@ -42,6 +43,24 @@ Phases (any failure raises and exits non-zero):
      both fleet paths, the state within phase 3's bounds every round,
      E1's PlanAudit balanced, drops, several k and stale entries
      present, and each round's launches those its decisions imply;
+  cohort. the cohort simulator (``fed/simulator.from_strategy``) at the
+     same width and data: 5 rounds each under "none", "int8" and
+     "topk:0.1", 20 slots of 512 examples a round, each round beside the
+     per-slot loop and the kernels="off" cohort path on the same batches
+     from the same state; gates on the state, the payloads and the
+     launches (fim_diag 3 a round, the Gram 1, int8 5 pairs, top-k 20);
+     seconds a round against the loop and the peak memory printed;
+  cohort_edge. ``simulator.with_edge`` over E1's edge, 5 rounds beside a
+     kernels="off" twin: the edge stats and drop masks bit-identical; the
+     cohort path's two refusals raised;
+  resume. int8 fim_lbfgs on E1's edge: 3 rounds, ``save``,
+     ``restore_from`` into a fresh run, 3 more, against 6 straight rounds:
+     the simulation bit-identical, the params against the card's noise
+     floor (two straight runs), with deterministic and default cuDNN;
+  fleet. ``FleetEngine`` at 10^5 and 10^6 clients, 1 % a round, 5 rounds
+     each of bandwidth_opt and energy_opt: the numpy ``exact`` backend
+     against the float64 torch backend on the card (``jit``): identical
+     decisions, clock, energy and batteries within rtol 1e-9;
   4. LLM serving: granite-8b at full width in bf16 (36 layers, ~8.2 B
      parameters drawn on the card): prefill of 2 Zipf prompts of 4,096
      tokens through the tensor-core kernel (36 launches a call, each one
@@ -59,11 +78,14 @@ of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,8 +99,10 @@ from repro_torch.configs import granite_8b, hubert_xlarge  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
-from repro_torch.edge import ChannelConfig, DeviceConfig, EdgeConfig  # noqa: E402
-from repro_torch.fed import codecs  # noqa: E402
+from repro_torch.edge import (ChannelConfig, DeviceConfig, EdgeConfig,  # noqa: E402
+                              EdgeRuntime, FleetEngine)
+from repro_torch.edge.device import flops_grad_fim  # noqa: E402
+from repro_torch.fed import codecs, simulator, strategies  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
                                  flash_attention, ops, ref, vlbfgs)
@@ -225,6 +249,27 @@ EDGE_RUNS = {
 }
 EDGE_LEDGER_FIELDS = ("down_bytes", "up_star_bytes", "up_tree_bytes",
                       "scalar_bytes", "rounds")
+
+# phase "cohort": the cohort simulator (fed/simulator.py) at phase 3's
+# width, data and selection: COHORT clients a round, each slot COHORT_B of
+# its ~600 examples drawn without replacement.  Against the per-slot loop
+# and the kernels="off" cohort path, one round from the same state and
+# codec stream: the vmapped convolutions and per-example gradients run the
+# loop's function in other batch shapes (other cuDNN algorithms, sums in
+# other orders, ~1e-7 relative), and one quasi-Newton step carries that
+# into the params at ~1e-7 -> 1e-5 under "none"; int8 and top-k keep
+# phase 3's bounds (INT8_STATE_TOL with each payload coordinate within one
+# level; TOPK_STATE_TOL with swaps counted against k)
+COHORT_B = 512
+COHORT_STATE_TOL = 1e-5
+# phase "resume": RESUME_HALF rounds, checkpoint, RESUME_HALF more
+RESUME_HALF = 3
+# phase "fleet": the fleet engine at 10^5 and 10^6 clients, 1 % a round;
+# the device backend sums in other orders than numpy (float64), so
+# tests/test_fleet.py's contract: identical decisions, floats to 1e-9
+FLEET_POPULATIONS = (100_000, 1_000_000)
+FLEET_SHARE = 0.01
+FLEET_RTOL = 1e-9
 
 
 def reset_counts() -> None:
@@ -1199,6 +1244,481 @@ def edge_phase(train, test, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "cohort": the cohort simulator (fed/simulator.py) at full width
+# ---------------------------------------------------------------------------
+def cohort_slot_examples(run) -> int:
+    """Examples a cohort slot takes: COHORT_B, or the smallest non-empty
+    client's size where one holds fewer."""
+    return min(COHORT_B, min(len(p) for p in run.partition if len(p)))
+
+
+def cohort_batches(run, b: int) -> tuple[list, dict, torch.Tensor]:
+    """One round's stacked cohort: the run's numpy rng picks the clients
+    (``sample_clients``: COHORT of the non-IID-2 clients) and then ``b``
+    of each client's examples without replacement.  -> (client ids,
+    {"x": (K, b, 28, 28, 1), "y": (K, b)}, the (K,) weights)."""
+    clients = [int(c) for c in run.sample_clients()]
+    rows = [run.partition[c][run.rng.choice(len(run.partition[c]), size=b,
+                                            replace=False)]
+            for c in clients]
+    idx = torch.from_numpy(np.stack(rows)).to(run.device)
+    weights = torch.full((len(clients),), float(b), device=run.device)
+    return clients, {"x": run._train_x[idx], "y": run._train_y[idx]}, weights
+
+
+def recording_slots(strategy) -> dict:
+    """Keep the payloads ``strategy``'s cohort path last received (the
+    codec round-trip of every slot) in the returned dict."""
+    seen = {}
+    compress = strategy.compress_slots
+
+    def recording(slots, generator):
+        seen["slots"] = compress(slots, generator)
+        return seen["slots"]
+
+    strategy.compress_slots = recording
+    return seen
+
+
+def payload_gate(got, want, compress: str, k: int, tag: str) -> dict:
+    """The cohort's received payloads against another path's, slot by
+    slot: under int8 each coordinate within one level of its leaf
+    (max|x| / 127, with 1 % for the two paths' own maxima), under top-k
+    the coordinates that changed sides of the threshold at most
+    TOPK_SWAP_SHARE of the k sent.  -> the worst reading."""
+    worst = {"levels": 0.0, "swaps": 0}
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if compress == "int8":
+            for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+                level = max(float(x.abs().max()), float(y.abs().max())) / 127
+                if level == 0:
+                    continue
+                r = float((x - y).abs().max()) / level
+                worst["levels"] = max(worst["levels"], r)
+                require(r <= 1.01, f"{tag}: slot {i}: int8 payload differs "
+                        f"by {r} levels")
+        elif compress == TOPK:
+            fa, fb = _flat(a), _flat(b)
+            swaps = int(((fa == 0) != (fb == 0)).sum())
+            worst["swaps"] = max(worst["swaps"], swaps)
+            require(swaps <= TOPK_SWAP_SHARE * k, f"{tag}: slot {i}: {swaps} "
+                    f"coordinates swapped sides of the threshold (k = {k})")
+    return worst
+
+
+def cohort_state_rel(a, b) -> dict:
+    """||a - b|| / ||b|| of each part of two fim_lbfgs strategies' state."""
+    sa, sb = a.opt_state, b.opt_state
+    return {"params": _rel(a.params, b.params),
+            "fim_diag": _rel(sa.fim.diag, sb.fim.diag),
+            "history_s": _rel(sa.history.s, sb.history.s),
+            "history_y": _rel(sa.history.y, sb.history.y)}
+
+
+def cohort_run(train, test, compress: str, dev) -> dict:
+    """ROUNDS cohort rounds of fim_lbfgs at full width under ``compress``,
+    each beside the per-slot loop (``client_step`` -> ``compress_payload``
+    -> ``aggregate`` -> ``server_step``, the kernels on) and the cohort
+    path with kernels="off", both from the cohort's state and codec
+    stream of that round, on the same stacked batches.  Gates every
+    round: the launches, the state (params within COHORT_STATE_TOL under
+    "none", phase 3's int8 and top-k bounds under those codecs) and the
+    received payloads (payload_gate)."""
+    fcfg = FedConfig(compress=compress, **RUN)
+    run = FederatedRun(FMNIST_CNN, fcfg, train, test, "fim_lbfgs",
+                       device=dev)
+    auto = run.strategy
+    loop, off = (strategies.get("fim_lbfgs")(
+        FMNIST_CNN, FedConfig(compress=compress, kernels=kernels, **RUN),
+        train.n_classes, device=dev) for kernels in ("auto", "off"))
+    step_auto = simulator.from_strategy(auto)
+    step_off = simulator.from_strategy(off)
+    got, got_off = recording_slots(auto), recording_slots(off)
+    codec = auto.codec
+    gen = None if codec.identity else run.codec_generator
+    twin_gen = torch.Generator(device=dev)
+    b = cohort_slot_examples(run)
+    n_leaves = len(tree_leaves(auto.params))
+    tol = {"none": COHORT_STATE_TOL, "int8": INT8_STATE_TOL,
+           TOPK: TOPK_STATE_TOL}[compress]
+    k = codec._k(2 * auto.n_params()) if compress == TOPK else 0
+    tag = f"cohort {compress}"
+    rows = []
+    for t in range(ROUNDS):
+        clients, batch, weights = cohort_batches(run, b)
+        K = len(clients)
+        want = {**dict.fromkeys(COUNTERS, 0),
+                "fim_diag": -(-K * n_leaves // fim_diag.MAX_LEAVES),
+                "vlbfgs_gram": 1,
+                "int8_roundtrip": (-(-K * 2 * n_leaves
+                                     // codec_ops.INT8_MAX_LEAVES)
+                                   if compress == "int8" else 0),
+                "topk_select": K if compress == TOPK else 0,
+                "topk_select_cluster": K if compress == TOPK else 0}
+        snapshot = auto.state_dict()
+        for twin in (loop, off):
+            twin.load_state_dict(snapshot)
+        g0 = None if gen is None else gen.get_state()
+        # the cohort path, from fresh counts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        auto.params, auto.opt_state, stats = step_auto(
+            auto.params, auto.opt_state, batch, weights, gen)
+        torch.cuda.synchronize()
+        cohort_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        loss = float(stats["loss"])
+        require(math.isfinite(loss), f"{tag}: round {t + 1}: loss {loss}")
+        require(launches == want, f"{tag}: round {t + 1}: launches "
+                f"{launches} != {want}")
+        # the per-slot loop on the same batches and codec stream
+        if g0 is not None:
+            twin_gen.set_state(g0)
+        t0 = time.perf_counter()
+        received = []
+        for i in range(K):
+            payload, _ = loop.client_step((batch["x"][i], batch["y"][i]),
+                                          None)
+            if not codec.identity:
+                payload, _ = loop.compress_payload(payload, twin_gen)
+            received.append(payload)
+        loop.server_step(loop.aggregate(received, weights))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        # the cohort path with kernels="off"
+        if g0 is not None:
+            twin_gen.set_state(g0)
+        reset_counts()
+        off.params, off.opt_state, _ = step_off(
+            off.params, off.opt_state, batch, weights,
+            None if gen is None else twin_gen)
+        torch.cuda.synchronize()
+        off_launches = read_counts()
+        require(not any(off_launches.values()),
+                f"{tag}: kernels='off' launched {off_launches}")
+        rel = {"loop": cohort_state_rel(auto, loop),
+               "off": cohort_state_rel(auto, off)}
+        for twin, parts in rel.items():
+            require(parts["params"] <= tol, f"{tag}: round {t + 1}: params "
+                    f"differ from the {twin} path's by {parts['params']} > "
+                    f"{tol} (relative)")
+        worst = {}
+        if not codec.identity:
+            worst = {"loop": payload_gate(got["slots"], received, compress,
+                                          k, f"{tag} vs loop"),
+                     "off": payload_gate(got["slots"], got_off["slots"],
+                                         compress, k, f"{tag} vs off")}
+        rows.append({"cohort_s": cohort_s, "loop_s": loop_s,
+                     "peak_GB": peak_gb, "loss": loss, "launches": launches,
+                     "rel": rel, "payloads": worst})
+    steady = rows[1:]
+    row = {"phase": "cohort", "compress": compress, "slots": K,
+           "slot_examples": b, "slot_examples_cut": b < COHORT_B,
+           "d": auto.n_params(), "rounds": ROUNDS,
+           "cohort_s": [r["cohort_s"] for r in rows],
+           "loop_s": [r["loop_s"] for r in rows],
+           "cohort_s_median": statistics.median(r["cohort_s"] for r in steady),
+           "loop_s_median": statistics.median(r["loop_s"] for r in steady),
+           "peak_GB": max(r["peak_GB"] for r in rows),
+           "losses": [r["loss"] for r in rows],
+           "launches_per_round": rows[0]["launches"],
+           "rel_max": {twin: {p: max(r["rel"][twin][p] for r in rows)
+                              for p in rows[0]["rel"][twin]}
+                       for twin in ("loop", "off")},
+           "payload_worst": rows[-1]["payloads"] and {
+               twin: {m: max(r["payloads"][twin][m] for r in rows)
+                      for m in ("levels", "swaps")}
+               for twin in ("loop", "off")},
+           "state_tol": tol}
+    emit(row)
+    total = dict.fromkeys(COUNTERS, 0)
+    for r in rows:
+        for key in COUNTERS:
+            total[key] += r["launches"][key]
+    return total
+
+
+def cohort_phase(train, test, dev) -> dict:
+    total = dict.fromkeys(COUNTERS, 0)
+    for compress in ("none", "int8", TOPK):
+        for key, n in cohort_run(train, test, compress, dev).items():
+            total[key] += n
+        free_cuda()
+    return total
+
+
+def raises(fn, match: str) -> str:
+    """The ValueError ``fn`` must raise, naming ``match``; fails otherwise."""
+    try:
+        fn()
+    except ValueError as e:
+        require(match in str(e), f"refusal names {str(e)!r}, not {match!r}")
+        return str(e)
+    fail(f"no refusal where one naming {match!r} is due")
+
+
+def cohort_edge_phase(train, test, dev) -> dict:
+    """``with_edge`` over E1's edge (energy_opt, the 40 s cut, Markov churn
+    and SNR bursts): ROUNDS cohort rounds of fim_lbfgs at full width
+    beside a kernels="off" twin on the same batches, each with its own
+    runtime of the same seed.  Gates: the edge stats and each round's
+    drop mask bit-identical, drops and landers present, the launches of a
+    cohort round (Γ for every slot and the Gram; none where every slot
+    dropped, since the wrapper then skips the step); then the two
+    refusals of the cohort path (a policy of per-client codecs, a
+    compressing codec given no generator)."""
+    edge = EdgeConfig(channel=EDGE_CHANNEL, device=EDGE_FLEET,
+                      **EDGE_RUNS["E1"]["edge"])
+    run = FederatedRun(FMNIST_CNN, FedConfig(**RUN), train, test,
+                       "fim_lbfgs", device=dev)
+    twins = {"auto": run.strategy,
+             "off": strategies.get("fim_lbfgs")(
+                 FMNIST_CNN, FedConfig(kernels="off", **RUN),
+                 train.n_classes, device=dev)}
+    d = run.strategy.n_params()
+    rts = {name: EdgeRuntime(edge, RUN["num_clients"], RUN["seed"],
+                             device=dev) for name in twins}
+    steps = {name: simulator.with_edge(simulator.from_strategy(s),
+                                       rts[name], d)
+             for name, s in twins.items()}
+    b = cohort_slot_examples(run)
+    n_leaves = len(tree_leaves(run.params))
+    keys = ("wall_s", "sim_time_s", "energy_j", "dropped", "barrier_s")
+    rows, total = [], dict.fromkeys(COUNTERS, 0)
+    for t in range(ROUNDS):
+        clients, batch, weights = cohort_batches(run, b)
+        out = {}
+        for name, strat in twins.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            strat.params, strat.opt_state, stats = steps[name](
+                strat.params, strat.opt_state, batch, weights,
+                clients=np.asarray(clients))
+            torch.cuda.synchronize()
+            dec = rts[name].decisions[-1]
+            out[name] = {"host_s": time.perf_counter() - t0,
+                         "launches": read_counts(),
+                         "stats": {k: stats.get(k) for k in keys},
+                         "landed": [int(c not in dec.dropped)
+                                    for c in clients],
+                         "loss": float(stats["loss"])}
+        a, o = out["auto"], out["off"]
+        require(a["stats"] == o["stats"] and a["landed"] == o["landed"],
+                f"cohort_edge: round {t + 1}: kernels='off' stats {o} != "
+                f"{a}")
+        require(not any(o["launches"].values()),
+                f"cohort_edge: kernels='off' launched {o['launches']}")
+        # an all-dropped round runs no step at all (with_edge skips it)
+        stepped = any(a["landed"])
+        want = {**dict.fromkeys(COUNTERS, 0),
+                "fim_diag": stepped * -(-len(clients) * n_leaves
+                                        // fim_diag.MAX_LEAVES),
+                "vlbfgs_gram": int(stepped)}
+        require(a["launches"] == want, f"cohort_edge: round {t + 1}: "
+                f"launches {a['launches']} != {want}")
+        for key in COUNTERS:
+            total[key] += a["launches"][key]
+        rows.append(a)
+    landed = [sum(r["landed"]) for r in rows]
+    require(any(n < len(r["landed"]) for n, r in zip(landed, rows, strict=True))
+            and any(landed), f"cohort_edge: landed {landed} a round: no "
+            "drop, or no lander")
+    # the refusals: adaptive_codec's per-client codecs, and an int8 step
+    # billed without the generator that makes its round-trip real
+    adaptive = EdgeRuntime(
+        EdgeConfig(channel=EDGE_CHANNEL, device=EDGE_FLEET,
+                   **EDGE_RUNS["E2"]["edge"]),
+        RUN["num_clients"], RUN["seed"], device=dev)
+    s = run.strategy
+    adaptive_step = simulator.with_edge(simulator.from_strategy(s),
+                                        adaptive, d)
+    s8 = strategies.get("fim_lbfgs")(FMNIST_CNN,
+                                     FedConfig(compress="int8", **RUN),
+                                     train.n_classes, device=dev)
+    int8_step = simulator.with_edge(
+        simulator.from_strategy(s8),
+        EdgeRuntime(edge, RUN["num_clients"], RUN["seed"], device=dev), d)
+    refusals = {
+        "adaptive_codec": raises(lambda: adaptive_step(
+            s.params, s.opt_state, batch, weights,
+            clients=np.asarray(clients)), "per-client upload codecs"),
+        "no_generator": raises(lambda: int8_step(
+            s8.params, s8.opt_state, batch, weights), "bills compressed")}
+    emit({"phase": "cohort_edge", "policy": edge.scheduler, "rounds": ROUNDS,
+          "slot_examples": b,
+          "host_s_per_round": [r["host_s"] for r in rows],
+          "landed": landed, "losses": [r["loss"] for r in rows],
+          **{k: [r["stats"][k] for r in rows] for k in keys},
+          "launches": total, "equal_kernels_off": True,
+          "refusals": refusals})
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase "resume": checkpoint/resume on the card
+# ---------------------------------------------------------------------------
+def resume_fingerprint(run, tail: int = 3) -> dict:
+    """What a resumed run must reproduce over its last ``tail`` rounds."""
+    edge = run.edge
+    return {"ledger": {f: getattr(run.ledger, f) for f in EDGE_LEDGER_FIELDS},
+            "cohorts": [tuple(sorted(d.selected))
+                        for d in edge.decisions[-tail:]],
+            "drops": [tuple(sorted(d.dropped))
+                      for d in edge.decisions[-tail:]],
+            "clock_s": edge.clock.now, "energy_j": edge.energy_j,
+            "battery_j": edge.fleet.battery_j.tolist()}
+
+
+def resume_runs(train, test, dev, folder: str) -> dict:
+    """Two straight 6-round runs and one of 3 rounds, saved, restored
+    into a fresh run and run 3 more: -> the resumed fingerprint's
+    equality and the params' distances (straight against straight: the
+    noise floor; resumed against straight)."""
+    edge = EdgeConfig(channel=EDGE_CHANNEL, device=EDGE_FLEET,
+                      **EDGE_RUNS["E1"]["edge"])
+    fcfg = FedConfig(edge=edge, compress="int8", **RUN)
+
+    def make():
+        return FederatedRun(FMNIST_CNN, fcfg, train, test, "fim_lbfgs",
+                            device=dev)
+
+    straight = []
+    for _ in range(2):
+        run = make()
+        run.run(rounds=2 * RESUME_HALF, eval_every=2 * RESUME_HALF)
+        straight.append(run)
+    head = make()
+    head.run(rounds=RESUME_HALF, eval_every=RESUME_HALF)
+    path = os.path.join(folder, "resume.npz")
+    head.save(path)
+    resumed = make().restore_from(path)
+    resumed.run(rounds=RESUME_HALF, eval_every=RESUME_HALF)
+    torch.cuda.synchronize()
+    a, b = straight
+    fp = resume_fingerprint(a)
+    require(resume_fingerprint(b) == fp, "resume: two straight runs disagree "
+            "on the simulation")
+    require(resume_fingerprint(resumed) == fp, "resume: the resumed run's "
+            "ledger, cohorts, drops, clock, energy or batteries differ")
+    return {"floor": _rel(b.params, a.params),
+            "resumed": _rel(resumed.params, a.params),
+            "resumed_equal": all(bool(torch.equal(x, y)) for x, y in zip(
+                tree_leaves(resumed.params), tree_leaves(a.params),
+                strict=True)),
+            "clock_s": fp["clock_s"], "drops": [len(d) for d in fp["drops"]]}
+
+
+def resume_phase(train, test, dev) -> dict:
+    """fim_lbfgs under int8 on E1's edge with its scenario: 6 straight
+    rounds against 3, ``save``, ``restore_from`` into a fresh run, then 3
+    more; the simulation (ledger, cohorts, drops, clock, energy,
+    batteries) must be bit-identical.  The params are judged against the
+    card's noise floor, the distance between two straight runs: with
+    cuDNN's deterministic algorithms the floor must be 0 and the resumed
+    run bit-identical; with its default (unordered backward sums) both
+    distances are read and printed."""
+    reset_counts()
+    rows = {}
+    with tempfile.TemporaryDirectory() as folder:
+        previous = torch.backends.cudnn.deterministic
+        try:
+            for mode, deterministic in (("deterministic", True),
+                                        ("default", False)):
+                torch.backends.cudnn.deterministic = deterministic
+                rows[mode] = resume_runs(train, test, dev, folder)
+        finally:
+            torch.backends.cudnn.deterministic = previous
+    launches = read_counts()
+    emit({"phase": "resume", "compress": "int8", "rounds": 2 * RESUME_HALF,
+          "policy": EDGE_RUNS["E1"]["edge"]["scheduler"],
+          "scenario": EDGE_SCENARIO, **rows, "launches": launches})
+    det = rows["deterministic"]
+    require(det["floor"] == 0.0, f"resume: two straight runs with "
+            f"deterministic cuDNN differ by {det['floor']}")
+    require(det["resumed_equal"], f"resume: the resumed params differ by "
+            f"{det['resumed']} where the noise floor is 0")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase "fleet": the fleet engine's two backends at 10^5 and 10^6 clients
+# ---------------------------------------------------------------------------
+def fleet_phase(dev) -> None:
+    """FleetEngine over FLEET_POPULATIONS clients, FLEET_SHARE of them a
+    round, ROUNDS rounds each of bandwidth_opt and energy_opt, E1's edge
+    with star aggregation (the device backend's topology) and a 50 J
+    battery, energy_opt under E1's 60 s deadline and 40 s cut,
+    bandwidth_opt uncut (it equalises the cohort's finish times, so a
+    hard cut below the slowest device's compute drops every client):
+    ``exact`` (numpy on the host) against ``jit`` (float64 torch on the
+    card).  Gates (tests/test_fleet.py's contract): the same
+    selected sets and drop counts every round, clock, energy and
+    batteries within rtol FLEET_RTOL."""
+    d = sum(p.numel() for p in tree_leaves(
+        cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0))))
+    channel = dataclasses.replace(EDGE_CHANNEL, topology="star")
+    device = dataclasses.replace(EDGE_FLEET, battery_j=50.0)
+    for pop in FLEET_POPULATIONS:
+        k = int(FLEET_SHARE * pop)
+        for policy in ("bandwidth_opt", "energy_opt"):
+            cut = 40.0 if policy == "energy_opt" else float("inf")
+            cfg = EdgeConfig(channel=channel, device=device, scheduler=policy,
+                             deadline_s=60.0, enforce_deadline_s=cut,
+                             min_clients=2)
+            engines, seconds, build_s = {}, {}, {}
+            for backend in ("exact", "jit"):
+                t0 = time.perf_counter()
+                engines[backend] = FleetEngine(
+                    cfg, pop, up_bytes=8.0 * d, flops=flops_grad_fim(d, 600),
+                    down_bytes=4.0 * d, seed=0, backend=backend, device=dev)
+                build_s[backend] = time.perf_counter() - t0
+                seconds[backend] = []
+            ex, jt = engines["exact"], engines["jit"]
+            dropped, cohort = [], []
+            for t in range(ROUNDS):
+                recs = {}
+                for backend, eng in engines.items():
+                    t0 = time.perf_counter()
+                    recs[backend] = eng.run_round(k)
+                    seconds[backend].append(time.perf_counter() - t0)
+                ra, rb = recs["exact"], recs["jit"]
+                tag = f"fleet {pop} {policy} round {t + 1}"
+                require(np.array_equal(ex.last_decision.selected,
+                                       jt.last_decision.selected),
+                        f"{tag}: the backends selected other clients")
+                require(ra["dropped"] == rb["dropped"]
+                        and ra["cohort"] == rb["cohort"],
+                        f"{tag}: exact {ra} != jit {rb}")
+                require(np.isclose(ra["wall_s"], rb["wall_s"],
+                                   rtol=FLEET_RTOL, atol=0),
+                        f"{tag}: wall_s {ra['wall_s']} != {rb['wall_s']}")
+                dropped.append(ra["dropped"])
+                cohort.append(ra["cohort"])
+            rel = {"clock_s": abs(jt.clock_s - ex.clock_s) / ex.clock_s,
+                   "energy_j": abs(jt.energy_j - ex.energy_j) / ex.energy_j,
+                   "battery_j": float(np.max(
+                       np.abs(jt.state.battery_j - ex.state.battery_j)
+                       / np.maximum(np.abs(ex.state.battery_j), 1e-300)))}
+            emit({"phase": "fleet", "population": pop, "k": k,
+                  "policy": policy, "rounds": ROUNDS,
+                  "exact_s_per_round": seconds["exact"],
+                  "jit_s_per_round": seconds["jit"],
+                  "exact_s_median": statistics.median(seconds["exact"][1:]),
+                  "jit_s_median": statistics.median(seconds["jit"][1:]),
+                  "build_s": build_s, "cohort": cohort, "dropped": dropped,
+                  "clock_s": ex.clock_s, "energy_j": ex.energy_j,
+                  "rel": rel, "rtol": FLEET_RTOL})
+            for name, r in rel.items():
+                require(r <= FLEET_RTOL, f"fleet {pop} {policy}: {name} "
+                        f"differs by {r} > {FLEET_RTOL} (relative)")
+            require(any(cohort), f"fleet {pop} {policy}: cohorts {cohort}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: LLM serving at full width
 # ---------------------------------------------------------------------------
 def timed_s(fn):
@@ -1498,6 +2018,17 @@ def main() -> int:
     count(edge_phase(train, test, card))
     free_cuda()
 
+    # phases "cohort", "cohort_edge" and "resume": the cohort simulator,
+    # its edge wrapper and checkpoint/resume, launches from fresh counts
+    count(cohort_phase(train, test, dev))
+    count(cohort_edge_phase(train, test, dev))
+    free_cuda()
+    count(resume_phase(train, test, dev))
+    free_cuda()
+    # phase "fleet": no kernel of csrc/ (float64 torch ops on the card)
+    fleet_phase(dev)
+    free_cuda()
+
     # phase 4: LLM serving, each path from fresh counts
     llm = {"granite": serve_granite(dev)}
     free_cuda()
@@ -1526,7 +2057,8 @@ def main() -> int:
         {**entry("fim_diag", "src/repro_torch/csrc/fim_diag.cu",
                  "src/repro/kernels/fim_diag.py:40", fim_rows,
                  total["fim_diag"]),
-         "launches_are": "one a client grad_fim call, all leaves"},
+         "launches_are": "one a client grad_fim call, all leaves; on the "
+                         "cohort path one a 64 (slot, leaf) matrices"},
         {**entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
                  "src/repro/kernels/vlbfgs.py:40", gram_rows,
                  total["vlbfgs_gram"]),
@@ -1535,7 +2067,8 @@ def main() -> int:
                  "src/repro/kernels/codec_ops.py:69",
                  [int8_payload, *int8_rows], total["int8_roundtrip"]),
          "launches_are": "launch pairs (int8_amax + int8_apply), one a "
-                         "client payload"},
+                         "client payload; on the cohort path one a 64 "
+                         "leaves of the cohort's payloads"},
         {**entry("topk_select", "src/repro_torch/csrc/topk.cu",
                  "src/repro/kernels/codec_ops.py:133", topk_rows,
                  total["topk_select"]),

@@ -61,6 +61,40 @@ def microbatch_diag(grad_tree, kernels: str = "off"):
     return _diag_tree(grad_tree, False, kernels)
 
 
+def _cohort_diag_tree(g_tree, batch_leading: bool, kernels: str):
+    """``_diag_tree`` of every slot of a stacked cohort tree (leaves
+    (K, B, ...) per-example gradients, or (K, ...) gradients) in ONE fused
+    Γ call over all K·L matrices, each one slot's leaf viewed where it
+    lies: the kernel takes up to 64 of them a launch.  -> leaves (K, ...)."""
+    leaves = [g.contiguous() for g in tree_leaves(g_tree)]
+    k = leaves[0].shape[0] if leaves else 0
+    mats = [(g[i].reshape(g.shape[1], -1) if batch_leading
+             else g[i].reshape(1, -1)) for g in leaves for i in range(k)]
+    outs = kernel_ops.fim_diag_update_leaves(mats, None, 0.0, mode=kernels)
+    shapes = [g.shape[2:] if batch_leading else g.shape[1:] for g in leaves]
+    return tree_unflatten(g_tree, [
+        torch.stack([o.reshape(shape) for o in outs[j * k:(j + 1) * k]])
+        for j, shape in enumerate(shapes)])
+
+
+def cohort_per_example_diag(per_example_loss: Callable, params, xs, ys,
+                            kernels: str = "off"):
+    """``per_example_diag`` of every slot of a stacked cohort: ``xs``
+    (K, B, ...), ``ys`` (K, B) -> leaves (K, ...).  The per-example
+    gradients come from one vmap over K of the vmap over B (leaves
+    (K, B, ...)); Γ runs outside the vmap, which cannot batch through the
+    kernel's launch, as one fused call for the whole cohort."""
+    per_slot = vmap(grad(per_example_loss), in_dims=(None, 0, 0))
+    grads = vmap(per_slot, in_dims=(None, 0, 0))(params, xs, ys)
+    return _cohort_diag_tree(grads, True, kernels)
+
+
+def cohort_microbatch_diag(grad_tree, kernels: str = "off"):
+    """``microbatch_diag`` of every slot of stacked (K, ...) gradients, in
+    one fused Γ call."""
+    return _cohort_diag_tree(grad_tree, False, kernels)
+
+
 def update(state: FimState, new_diag, ema: float) -> FimState:
     """EMA accumulation of the Fisher diagonal; the first step takes the
     new diagonal as is (no bias toward the zero init)."""

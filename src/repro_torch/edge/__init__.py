@@ -1,6 +1,7 @@
 """repro_torch.edge — resource-constrained wireless edge runtime (port of
-``repro.edge``; numpy only, so the modules are the reference's own code
-with imports rerooted).
+``repro.edge``; numpy only apart from ``fleet/kernel.py``, the fused
+float64 torch backend, so the modules are the reference's own code with
+imports rerooted).
 
 The paper's premise is *resource-constrained* FEEL: hundreds of remote
 devices behind expensive uplinks.  This subsystem simulates that layer
@@ -33,16 +34,17 @@ already tracks into wall-clock time and energy:
                     the barrier, partial uploads billed but discarded);
   * runtime.py    — EdgeConfig + EdgeRuntime gluing the above under
                     ``FederatedRun``, with the struct-of-arrays fleet fast
-                    path on its exact numpy backend;
+                    path (the exact numpy backend, or ``fleet_backend=
+                    "jit"``: the fused float64 torch backend on the
+                    run's device);
+  * fleet/        — struct-of-arrays mega-scale engine: the same sync
+                    round semantics over 10⁵–10⁶ clients (FleetState,
+                    FleetEngine) on either backend;
   * scenario/     — availability churn + fault injection: seeded
                     diurnal/markov/trace availability processes,
                     blackout/SNR-burst/straggler/battery-gate/
                     data-exclusion injectors, and the spec-string grammar
                     behind EdgeConfig.scenario.
-
-Not ported yet: the reference's ``edge/fleet/`` engine (``FleetEngine``,
-``FleetState``) and its x64 ``jit`` backend (``fleet_backend="jit"``
-raises ``NotImplementedError``).
 
 Bandwidth allocation never changes WHAT is transmitted (the ledger is
 ground truth); per-client codecs change bytes only through their
@@ -63,6 +65,7 @@ from repro_torch.edge.device import (DeviceConfig, DeviceFleet,
                                      flops_grad_fim, flops_local_sgd)
 from repro_torch.edge.events import (DeadlineVerdict, Event, EventClock,
                                      enforce_deadlines, reallocated_finish)
+from repro_torch.edge.fleet import FleetEngine, FleetState
 from repro_torch.edge.runtime import EdgeConfig, EdgeRuntime
 from repro_torch.edge.scenario import (RoundEffects, Scenario, fault_names,
                                        make_scenario, process_names,
@@ -87,6 +90,7 @@ __all__ = [
     "RoundEffects", "Scenario", "make_scenario", "register_process",
     "register_fault", "process_names", "fault_names",
     "FleetRoundState", "FleetDecision", "ClientEstimate",
+    "FleetEngine", "FleetState",
     # legacy aliases (see edge/scheduler.py)
     "UniformScheduler", "DeadlineScheduler", "EnergyThresholdScheduler",
     "CapacityProportionalScheduler", "make_scheduler",

@@ -64,15 +64,10 @@ import numpy as np
 # the shared budget: bandwidth_opt bisects the barrier T (Σ W_k(T)
 # decreasing in T), energy_opt the KKT multiplier λ (Σ max(floor, λ·√c)
 # increasing in λ).  They share one iteration count and one width/slack
-# tolerance so the vectorized fleet kernel (repro.edge.fleet.kernel) has
+# tolerance so the vectorized fleet kernel (repro_torch.edge.fleet.kernel) has
 # exactly one reference to mirror.
 BISECT_ITERS = 64       # bisection refinement steps (both policies)
 BISECT_EPS = 1e-12      # width / budget slack floor shared by both searches
-
-# the reference's x64 JAX fleet backend (repro.edge.fleet.kernel) has no
-# port yet; the "exact" numpy backend is the port's fast path
-JIT_NOT_PORTED = ("fleet_backend='jit' is not ported yet (ROADMAP item 6, "
-                  "the fleet engine); use fleet_backend='exact'")
 
 
 def bisect_budget(fn: Callable[[float], float], lo: float, hi: float,
@@ -344,14 +339,15 @@ class RoundDecision:
 @dataclass
 class FleetRoundState:
     """The struct-of-arrays twin of :class:`RoundState` for the fleet
-    fast path (`repro.edge.fleet`): the same per-round facts, but kept as
-    arrays over the eligible population instead of per-client dicts.
+    fast path (`repro_torch.edge.fleet`): the same per-round facts, but
+    kept as arrays over the eligible population instead of per-client
+    dicts.
 
     ``backend`` picks the width solver: ``"exact"`` runs the shared
     vectorized-numpy cores above (bit-identical to the scalar dict path
-    by construction), ``"jit"`` the x64 lax kernels in
-    ``repro.edge.fleet.kernel`` (equal up to float-op reassociation —
-    XLA reductions are not bitwise numpy)."""
+    by construction), ``"jit"`` the float64 torch kernels in
+    ``repro_torch.edge.fleet.kernel`` on ``device`` (equal up to float-op
+    reassociation — torch reductions are not bitwise numpy)."""
     k: int                          # target cohort size
     ids: np.ndarray                 # (n,) eligible (alive) client ids
     t_comp_s: np.ndarray            # (n,) compute-only times
@@ -362,6 +358,7 @@ class FleetRoundState:
     payload_mult: Optional[np.ndarray] = None  # (n,) payloads per client
     est: Optional[ClientEstimate] = None       # nominal-split estimates
     backend: str = "exact"          # "exact" | "jit"
+    device: Optional[object] = None  # "jit": the torch device (None: cuda)
 
     def mult(self) -> np.ndarray:
         if self.payload_mult is None:
@@ -840,7 +837,12 @@ class BandwidthOptPolicy(AllocationPolicy):
             tc = np.asarray(fstate.t_comp_s[sel], dtype=float)
             b = bits * fstate.mult()[sel]
             if fstate.backend == "jit":
-                raise NotImplementedError(JIT_NOT_PORTED)
+                # late: the fleet package imports this module
+                from repro_torch.edge.fleet import kernel
+                w = kernel.bandwidth_opt_widths_jit(b, s, tc,
+                                                    fstate.budget_hz,
+                                                    self.iters,
+                                                    device=fstate.device)
             else:
                 w = bandwidth_opt_widths(b, s, tc, fstate.budget_hz,
                                          self.iters)
@@ -978,7 +980,9 @@ class EnergyOptPolicy(AllocationPolicy):
         budget = float(fstate.budget_hz)
         feas = self._feasible(w_min, tc, budget)
         if fstate.backend == "jit":
-            raise NotImplementedError(JIT_NOT_PORTED)
+            from repro_torch.edge.fleet import kernel  # late, as above
+            w = kernel.energy_opt_widths_jit(c, w_min, feas, budget,
+                                             self.iters, device=fstate.device)
         else:
             w = energy_opt_widths(c, w_min, feas, budget, self.iters)
         ok = w >= w_min * (1.0 - 1e-9)

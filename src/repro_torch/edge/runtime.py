@@ -27,10 +27,9 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.edge.allocation import (JIT_NOT_PORTED, ClientEstimate,
-                                         FleetDecision, FleetRoundState,
-                                         RoundDecision, RoundState,
-                                         make_policy)
+from repro_torch.edge.allocation import (ClientEstimate, FleetDecision,
+                                         FleetRoundState, RoundDecision,
+                                         RoundState, make_policy)
 from repro_torch.edge.async_agg import AsyncAggregator
 from repro_torch.edge.channel import Channel, ChannelConfig
 from repro_torch.edge.device import DeviceConfig, DeviceFleet
@@ -40,6 +39,7 @@ from repro_torch.edge.events import (DEADLINE_EXPIRED, DeadlineVerdict,
 from repro_torch.edge.scenario import RoundEffects, Scenario, make_scenario
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import reason_key
+from repro_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -85,7 +85,9 @@ class EdgeConfig:
     # policy has a vectorized form; sync mode only — the async tail
     # keeps the EventClock/dict path).  fleet_backend "exact" uses the
     # shared vectorized-numpy cores (bit-identical to the dict path);
-    # "jit" the x64 lax kernels (equal up to float reassociation).
+    # "jit" (the reference's name, kept so configs carry over) the fused
+    # float64 torch backend on the run's device, the card by default
+    # (equal up to float reassociation; repro_torch.edge.fleet.kernel).
     fleet: str = "auto"                  # "auto" | "on" | "off"
     fleet_threshold: int = 4096          # auto: engage at population >= this
     fleet_backend: str = "exact"         # "exact" | "jit"
@@ -114,8 +116,6 @@ class EdgeConfig:
         if self.fleet_backend not in ("exact", "jit"):
             raise ValueError(f"EdgeConfig.fleet_backend must be 'exact' or "
                              f"'jit', got {self.fleet_backend!r}")
-        if self.fleet_backend == "jit":
-            raise NotImplementedError(f"EdgeConfig: {JIT_NOT_PORTED}")
 
 
 class EdgeRuntime:
@@ -123,9 +123,13 @@ class EdgeRuntime:
     simulation clock, and (in async mode) the in-flight buffer."""
 
     def __init__(self, cfg: EdgeConfig, num_clients: int, seed: int = 0,
-                 tracer=None):
+                 tracer=None, device=None):
         self.cfg = cfg
         self.num_clients = num_clients
+        # the "jit" fleet backend's width solvers run as float64 torch ops
+        # on this device (None: the card); the numpy backend runs no torch
+        self.device = (resolve_device("cuda" if device is None else device)
+                       if cfg.fleet_backend == "jit" else None)
         # obs: spans/events/metrics go here; the shared no-op default
         # keeps the untraced hot path free (one attribute check per site)
         self.tracer = tracer if tracer is not None else obs.NULL_TRACER
@@ -347,7 +351,8 @@ class EdgeRuntime:
             k=k, ids=clients, t_comp_s=t_comp,
             spectral_eff=self.channel.spectral_efficiency(clients),
             budget_hz=budget, rng=self.rng, up_bits=8.0 * (agg0 + nonagg0),
-            payload_mult=payload_mult, backend=self.cfg.fleet_backend)
+            payload_mult=payload_mult, backend=self.cfg.fleet_backend,
+            device=self.device)
         return fstate, agg0 + nonagg0
 
     def _decide_fleet(self, k: int, clients: np.ndarray, wire_fn, fl,

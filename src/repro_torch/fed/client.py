@@ -12,7 +12,7 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.func import grad_and_value
+from torch.func import grad_and_value, vmap
 
 from repro_torch.core import baselines, fim
 from repro_torch.utils.pytree import tree_map
@@ -39,6 +39,34 @@ def make_grad_fim_fn(loss_fn: Callable, per_example_loss: Callable | None,
         return grad, diag, loss
 
     return client_grad_fim
+
+
+def make_cohort_grad_fim_fn(loss_fn: Callable,
+                            per_example_loss: Callable | None,
+                            fim_mode: str = "per_example",
+                            kernels: str = "off"):
+    """``make_grad_fim_fn`` over a stacked cohort (the vmapped cohort
+    path, fed/simulator.py): ``(params, {"x": (K, B, ...), "y": (K, B)})
+    -> (grads, Γs, losses)`` with a leading K on every leaf.
+
+    The reference vmaps its per-client fn; ``torch.func.vmap`` cannot
+    batch through the Γ kernel (it launches through ctypes), so the
+    gradients and losses are one vmap over K of ``grad_and_value``, and
+    Γ of the whole cohort is one fused call outside it
+    (``core.fim.cohort_per_example_diag`` / ``cohort_microbatch_diag``)."""
+    value_grad = vmap(grad_and_value(loss_fn), in_dims=(None, 0))
+
+    def cohort_grad_fim(params, cohort_batch):
+        grads, losses = value_grad(params, cohort_batch)
+        if fim_mode == "per_example" and per_example_loss is not None:
+            diags = fim.cohort_per_example_diag(
+                per_example_loss, params, cohort_batch["x"],
+                cohort_batch["y"], kernels=kernels)
+        else:
+            diags = fim.cohort_microbatch_diag(grads, kernels=kernels)
+        return grads, diags, losses
+
+    return cohort_grad_fim
 
 
 def _sgd_step(p, g, lr: float):

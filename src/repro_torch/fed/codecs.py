@@ -78,6 +78,13 @@ class PayloadCodec(abc.ABC):
         """The ``FedConfig.compress`` string that reconstructs this codec."""
         return self.name
 
+    def roundtrip_slots(self, trees, generator: torch.Generator) -> list:
+        """What the server receives from each of a cohort's payloads, with
+        no residual in or out (the vmapped cohort path, fed/simulator.py):
+        ``roundtrip`` slot by slot, drawing from ``generator`` in slot
+        order."""
+        return [self.roundtrip(t, generator)[0] for t in trees]
+
 
 class NoneCodec(PayloadCodec):
     """Uncompressed float32 uploads."""
@@ -123,6 +130,20 @@ class Int8Codec(PayloadCodec):
         out = kernel_ops.int8_roundtrip_leaves(tree_leaves(tree), generator,
                                                mode=self.kernels)
         return tree_unflatten(tree, out), None
+
+    def roundtrip_slots(self, trees, generator):
+        # every slot's leaves in one call (on CUDA: one launch pair a 64
+        # leaves); its uniforms are drawn leaf by leaf in slot order, the
+        # stream of the slot-by-slot loop, so both agree bit for bit
+        slots = [tree_leaves(t) for t in trees]
+        out = kernel_ops.int8_roundtrip_leaves(
+            [x for leaves in slots for x in leaves], generator,
+            mode=self.kernels)
+        received, at = [], 0
+        for t, leaves in zip(trees, slots, strict=True):
+            received.append(tree_unflatten(t, out[at:at + len(leaves)]))
+            at += len(leaves)
+        return received
 
 
 class _SparsifyingCodec(PayloadCodec):

@@ -26,9 +26,9 @@ algorithm-independent:
     re-normalized weights; async dispatches get per-client expiry
     events that hand granted spectrum back to the pool),
   * observability: spans, events, metrics and the plan-vs-billed
-    ``PlanAudit`` through ``tracer=`` (``repro_torch.obs``).
-
-Not ported yet: checkpoint/resume (``save`` / ``restore_from``).
+    ``PlanAudit`` through ``tracer=`` (``repro_torch.obs``),
+  * checkpoint/resume of sync-mode runs (``save`` / ``restore_from``,
+    ``repro_torch.checkpoint.run_state``).
 
 The run lives on one device.  The training set is moved there once; the
 client sampling and the whole edge layer draw the reference's numpy
@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_run, save_run
 from repro_torch.configs.base import FedConfig
 from repro_torch.configs.paper_models import CNNConfig
 from repro_torch.data.partition import noniid_partition
@@ -102,7 +103,8 @@ class FederatedRun:
                     "async edge mode needs summable client payloads; "
                     f"{algorithm!r} supports sync edge simulation only")
             self.edge = EdgeRuntime(fed_cfg.edge, fed_cfg.num_clients,
-                                    fed_cfg.seed, tracer=self.tracer)
+                                    fed_cfg.seed, tracer=self.tracer,
+                                    device=self.device)
             if self.edge.policy.needs_summable and not self.plan.summable:
                 raise ValueError(
                     f"allocation policy {fed_cfg.edge.scheduler!r} emits "
@@ -121,6 +123,16 @@ class FederatedRun:
         self._train_x = torch.from_numpy(train.x).to(self.device)
         self._train_y = torch.from_numpy(train.y).to(self.device)
         self._client_idx: dict[int, torch.Tensor] = {}
+
+    # ------------------------------------------------------------------
+    # checkpoint/resume (repro_torch.checkpoint.run_state): sync-mode runs
+    # round-trip bit-identically — save at a round boundary, restore
+    # into a freshly constructed run with the same configs
+    def save(self, path: str) -> None:
+        save_run(path, self)
+
+    def restore_from(self, path: str) -> "FederatedRun":
+        return load_run(path, self)
 
     @property
     def params(self):

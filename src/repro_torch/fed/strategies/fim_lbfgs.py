@@ -31,6 +31,9 @@ class FimLbfgsStrategy(FedStrategy):
         self._grad_fim = fed_client.make_grad_fim_fn(
             _loss, cnn.per_example_loss_fn(self.mcfg), self.fcfg.fim_mode,
             kernels=kernels)
+        self._cohort_grad_fim = fed_client.make_cohort_grad_fim_fn(
+            _loss, cnn.per_example_loss_fn(self.mcfg), self.fcfg.fim_mode,
+            kernels=kernels)
         self.ocfg = fim_lbfgs.FimLbfgsConfig(
             learning_rate=self.fcfg.second_order_lr, m=self.fcfg.lbfgs_m,
             damping=self.fcfg.fim_damping, fim_ema=self.fcfg.fim_ema,
@@ -56,12 +59,24 @@ class FimLbfgsStrategy(FedStrategy):
         g, f, loss = self._grad_fim(self.params, {"x": xs, "y": ys})
         return (g, f), loss
 
+    @staticmethod
+    def _received(payload):
+        # the Fisher diagonal must stay nonnegative through the roundtrip
+        g, f = payload
+        return g, tree_map(torch.abs, f)
+
     def compress_payload(self, payload, generator, residual=None, codec=None):
         out, residual = (codec or self.codec).roundtrip(payload, generator,
                                                         residual)
-        g, f = out
-        # the Fisher diagonal must stay nonnegative through the roundtrip
-        return (g, tree_map(torch.abs, f)), residual
+        return self._received(out), residual
+
+    def compress_slots(self, payloads, generator):
+        """A cohort's payloads through the run codec with no error
+        feedback (the cohort path, fed/simulator.py): what
+        ``compress_payload`` gives slot by slot, in one codec call (int8:
+        every slot's leaves in one leaf table)."""
+        return [self._received(out)
+                for out in self.codec.roundtrip_slots(payloads, generator)]
 
     def aggregate(self, payloads, weights):
         w = weights.float()
@@ -75,3 +90,14 @@ class FimLbfgsStrategy(FedStrategy):
         grad, fimd = aggregate
         self.params, self.opt_state, _ = fim_lbfgs.update(
             self.opt_state, self.params, grad, fimd, self.ocfg)
+
+    # -- vmapped cohort path (fed/simulator.py) --------------------------
+    @property
+    def cohort_client_fn(self):
+        """(params, stacked cohort batch) -> (grads, Γs, losses), each with
+        a leading cohort dim (``fed.client.make_cohort_grad_fim_fn``)."""
+        return self._cohort_grad_fim
+
+    def cohort_server_update(self, opt_state, params, grad, fim_diag):
+        """Pure server update for the cohort round_step."""
+        return fim_lbfgs.update(opt_state, params, grad, fim_diag, self.ocfg)

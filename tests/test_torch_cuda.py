@@ -1,5 +1,6 @@
 """Each hand-written CUDA kernel against its plain PyTorch version, on the
-card.  Marked ``cuda``: on a host without a CUDA device every test skips
+card, plus the cohort path's Γ launches and the fleet engine's float64
+device backend against its numpy backend.  Marked ``cuda``: on a host without a CUDA device every test skips
 with the reason.  This file imports neither JAX nor the reference, so it
 runs on a GPU host that has only PyTorch:
 
@@ -665,3 +666,61 @@ def test_adaptive_codec_edge_run_kernels_off_beside_auto(cuda):
     assert launches[0] == (landed, steps, coded)
     ks = {c for row in prints[0]["codecs"] for c in row if c is not None}
     assert len(ks) >= 2, ks
+
+
+def test_cohort_fisher_one_launch_a_64_matrices(cuda):
+    """The cohort path's Γ at the F-MNIST CNN's full width: K = 20 slots of
+    8 leaves are 160 (B, D) matrices in ceil(160 / 64) = 3 launches, each
+    slot within 1e-5 of the plain version (the oracle) on the same
+    per-example gradients."""
+    from repro_torch.core import fim
+    from repro_torch.utils.pytree import tree_map
+
+    K, B = 20, 8
+    params = tree_map(lambda p: p.to(cuda),
+                      cnn.init(FMNIST_CNN, torch.Generator().manual_seed(0)))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xs = torch.rand((K, B, 28, 28, 1), generator=gen, device=cuda)
+    ys = torch.randint(0, 10, (K, B), generator=gen, device=cuda)
+    pel = cnn.per_example_loss_fn(FMNIST_CNN)
+    before = fim_diag.LAUNCHES
+    got = fim.cohort_per_example_diag(pel, params, xs, ys, kernels="on")
+    torch.cuda.synchronize()
+    assert fim_diag.LAUNCHES == before + 3
+    want = fim.cohort_per_example_diag(pel, params, xs, ys, kernels="off")
+    assert fim_diag.LAUNCHES == before + 3
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert a.shape[0] == K
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["uniform", "bandwidth_opt", "energy_opt"])
+def test_fleet_device_backend_on_the_card_matches_exact(cuda, policy):
+    """The fleet engine's fused float64 backend on the card against the
+    numpy ``exact`` backend: the same cohorts and drop counts, clock,
+    energy and batteries within rtol 1e-9."""
+    from repro_torch.edge import (ChannelConfig, DeviceConfig, EdgeConfig,
+                                  FleetEngine)
+
+    cfg = EdgeConfig(
+        channel=ChannelConfig(bandwidth_hz=2e5, snr_db_mean=10.0,
+                              snr_db_std=3.0, fading="rayleigh",
+                              server_rate_bps=50e6),
+        device=DeviceConfig(flops_per_s_mean=2e9, flops_per_s_sigma=1.0,
+                            battery_j=50.0),
+        scheduler=policy, deadline_s=5.0, min_clients=1,
+        enforce_deadline_s=3.0, reallocate=True)
+    engines = [FleetEngine(cfg, 3000, up_bytes=80_000.0, flops=1e9,
+                           down_bytes=40_000.0, backend=b, device=cuda)
+               for b in ("exact", "jit")]
+    ex, jt = engines
+    for _ in range(4):
+        ra, rb = ex.run_round(300), jt.run_round(300)
+        assert np.array_equal(ex.last_decision.selected,
+                              jt.last_decision.selected)
+        assert ra["dropped"] == rb["dropped"]
+        assert np.isclose(ra["wall_s"], rb["wall_s"], rtol=1e-9, atol=0)
+    assert np.isclose(ex.clock_s, jt.clock_s, rtol=1e-9, atol=0)
+    assert np.isclose(ex.energy_j, jt.energy_j, rtol=1e-9, atol=0)
+    assert np.allclose(ex.state.battery_j, jt.state.battery_j, rtol=1e-9,
+                       atol=0)

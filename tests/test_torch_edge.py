@@ -217,7 +217,10 @@ def test_fleet_fast_path_matches_per_client_path_and_reference():
     """``fleet="on"`` (the struct-of-arrays path, exact numpy backend)
     beside ``"off"`` in the port, under churn with re-allocation, and
     both beside the reference: bit-identical fingerprints and records;
-    the refusal of the unported ``jit`` backend."""
+    and the fused device backend (``fleet_backend="jit"``, here on the
+    CPU) constructs and runs a round, with the exact backend's decision
+    and widths within rtol 1e-9 (tests/test_torch_fleet.py holds it
+    further)."""
     scenario_spec = "markov:p_drop=0.2,p_join=0.4|snr_burst:prob=0.4,scale=0.1"
     ref, (off, on) = make_runs("fim_lbfgs", 3, fleet=("off", "on"),
                                scheduler="energy_opt", enforce_deadline_s=3.0,
@@ -235,5 +238,21 @@ def test_fleet_fast_path_matches_per_client_path_and_reference():
                 == {k: r.get(k) for k in edge_keys})
     assert on.edge.summary() == off.edge.summary() == ref.edge.summary()
     assert any(h.get("dropped") for h in on_hist)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        runtime.EdgeConfig(fleet_backend="jit")
+    runs = {}
+    for backend in ("exact", "jit"):
+        cfg = runtime.EdgeConfig(
+            channel=channel.ChannelConfig(**CHANNEL),
+            device=device.DeviceConfig(**DEVICE), scheduler="energy_opt",
+            deadline_s=5.0, fleet="on", fleet_backend=backend)
+        rt = runtime.EdgeRuntime(cfg, POP, device="cpu")
+        _, est, dec = rt.decide(6, np.arange(POP), lambda c=None: (8e4, 0.0),
+                                1e9, summable=True)
+        rec = rt.finish_round_sync(est, 8e4, 4e4, aggregatable=True)
+        assert rt.fleet_active() and rec["wall_s"] > 0
+        runs[backend] = (dec, rec)
+    (d_ex, r_ex), (d_jt, r_jt) = runs["exact"], runs["jit"]
+    assert list(d_jt.selected) == list(d_ex.selected) and d_jt.n_selected
+    np.testing.assert_allclose(d_jt.bandwidth_hz_arr, d_ex.bandwidth_hz_arr,
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(r_jt["wall_s"], r_ex["wall_s"], rtol=1e-9,
+                               atol=0)

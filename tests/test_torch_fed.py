@@ -306,9 +306,19 @@ def test_driver_refusals():
     assert strategy_names() == ["fedavg_adam", "fedavg_sgd", "feddane",
                                 "fedova", "fedova_lbfgs", "fedprox",
                                 "fim_lbfgs"]
-    # the edge runtime is ported apart from the fleet engine's x64 backend
-    with pytest.raises(NotImplementedError, match="fleet_backend='jit'"):
-        FedConfig(edge=EdgeConfig(fleet_backend="jit"))
+    # the fleet's fused device backend (fleet_backend="jit") constructs
+    # and runs a round, on the run's device (here the CPU)
+    jit_train, jit_test = make_classification(
+        reduced(FMNIST_CNN), n_train=50, n_test=10, seed=0)
+    jit_run = FederatedRun(
+        reduced(FMNIST_CNN),
+        FedConfig(edge=EdgeConfig(fleet="on", fleet_backend="jit",
+                                  scheduler="bandwidth_opt"), **RUN),
+        jit_train, jit_test, "fim_lbfgs", device="cpu")
+    info = jit_run.round()
+    assert jit_run.edge.fleet_active() and info["cohort"] > 0
+    assert jit_run.edge.device == torch.device("cpu")
+    assert info["wall_s"] > 0 and np.isfinite(info["loss"])
     train, test = make_classification(reduced(FMNIST_CNN), n_train=50,
                                       n_test=10, seed=0)
     with pytest.raises(ValueError, match="unknown federated strategy"):
