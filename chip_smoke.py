@@ -5,9 +5,11 @@ each against its plain PyTorch version on the card, drives Algorithm 1
 (``FederatedRun(..., "fim_lbfgs")``), FedAvg and the paper's other
 strategies at the full width of the paper's F-MNIST CNN through the
 kernels, the cohort simulator, checkpoint/resume and the fleet engine's
-device backend, and serves granite-8b and hubert-xlarge at their full
+device backend, serves granite-8b and hubert-xlarge at their full
 published widths through the flash-attention kernels (bf16 on the
-tensor-core kernel, f32 on the SIMT kernel).
+tensor-core kernel, f32 on the SIMT kernel), and trains both at full
+width with the federated LLM train step (FIM-L-BFGS over microbatch
+cohorts, the Gram kernel reading the bf16 history in place).
 
     python3 chip_smoke.py
 
@@ -21,7 +23,9 @@ Phases (any failure raises and exits non-zero):
      over fim_lbfgs's whole (g, Γ) payload in one launch pair (and each
      leaf alone); the top-k select on its one-launch cluster path, the
      four-launch path timed beside it, and one n above the cluster's
-     capacity (the four-launch path);
+     capacity (the four-launch path); the Gram read in place from an
+     m = 10 bf16 history of granite-8b's 12 leaves at 2 layers beside an
+     f32 g (the train step's, 838.9 M columns);
   3. the main paths, each 5 rounds on 60,000 synthetic F-MNIST examples,
      100 clients, 20 per round, non-IID-2: fim_lbfgs under
      compress="none", "int8" and "topk:0.1", and fedavg_sgd under
@@ -69,10 +73,21 @@ Phases (any failure raises and exits non-zero):
      at full width in f32 with 4 layers (the SIMT kernel); the
      hubert-xlarge encoder at full width (48 layers) on 2 x 4,096 frames,
      with its off-beside-auto check;
+  llm_train. the federated LLM train step (``launch/train.py``) at
+     granite-8b's full width in bf16, 2 of its 36 layers (838.9 M
+     parameters, an m = 10 bf16 history), 4 Zipf sequences of 4,096
+     tokens in 4 microbatch cohorts: 3 fim_lbfgs steps (one Gram launch
+     each), its Gram against the plain version on the trained history,
+     the kernels="off" twin from the same init (step 1 equal, then loss and
+     dir_norm within their bounds), 2 steps each of fedavg_adam and
+     fedavg_sgd; then hubert-xlarge's encoder loss at full width, 12 of 48
+     layers, 2 x 4,096 frames, 2 fim_lbfgs steps and their twin.  Each step
+     prints its loss, seconds, tokens/s, peak memory and Gram launches;
   5. one JSON line listing every ported kernel, then the result line.
 
-Needs CUDA and about 30 GB of device memory at its peak (granite-8b's
-16.5 GB of bf16 weights, the plain attention's f32 scores beside them).
+Needs CUDA and about 65 GB of device memory at its peak (the train
+step's 33.6 GB bf16 history beside its f32 accumulators, Fisher
+diagonal and step).
 Without CUDA the script exits 2 and prints no result.  It imports nothing
 of JAX or of the reference package ``repro``.
 """
@@ -96,7 +111,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import granite_8b, hubert_xlarge  # noqa: E402
-from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.configs.base import FedConfig, ShapeConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
 from repro_torch.edge import (ChannelConfig, DeviceConfig, EdgeConfig,  # noqa: E402
@@ -106,7 +121,9 @@ from repro_torch.fed import codecs, simulator, strategies  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
                                  flash_attention, ops, ref, vlbfgs)
-from repro_torch.launch.train import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.launch.train import (init_train_state,  # noqa: E402
+                                      make_prefill_step, make_serve_step,
+                                      make_train_step, opt_config)
 from repro_torch.models import cnn, transformer  # noqa: E402
 from repro_torch.models import model as zoo  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
@@ -270,6 +287,31 @@ RESUME_HALF = 3
 FLEET_POPULATIONS = (100_000, 1_000_000)
 FLEET_SHARE = 0.01
 FLEET_RTOL = 1e-9
+# phase "llm_train": the federated LLM train step (launch/train.py) at
+# granite-8b's full width, bf16, with the config's own m = 10 bf16
+# history, its depth cut from 36 layers to TRAIN_LAYERS (838,881,280
+# parameters; all 36 would need ~610 GB of optimizer state); TRAIN_B Zipf
+# sequences of TRAIN_S tokens (train_4k's length), one a microbatch
+# cohort; TRAIN_STEPS fim_lbfgs steps, then BASELINE_STEPS of each
+# first-order baseline from a fresh state; hubert-xlarge's encoder loss
+# at full width with HUBERT_LAYERS of its 48 layers
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_MICRO = 2, 4, 4096, 4
+TRAIN_STEPS, BASELINE_STEPS = 3, 2
+HUBERT_LAYERS, HUBERT_B, HUBERT_MICRO, HUBERT_STEPS = 12, 2, 2, 2
+# the kernels="off" twin of the fim_lbfgs steps, from the same init on the
+# same batches: step 1 is bit-identical (an empty history makes the
+# direction -g exactly, whatever the Gram reads); from step 2 the two
+# differ only by the Gram's f32 summation order (within GRAM_TOL of each
+# entry's Cauchy-Schwarz scale), which the two-loop carries into the
+# direction, and the bf16 params and history re-round wherever that moves
+# a value across a rounding boundary.  The card read 1.3e-5 on dir_norm
+# and 3.6e-6 on the loss at granite's step 3 (PR 19); each bound is ~30x
+# to ~80x that, while a Gram that misreads a row group or a leaf moves
+# dir_norm by O(1)
+TRAIN_DIR_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-4
+# the card's memory
+CARD_GB = 80.0
 
 
 def reset_counts() -> None:
@@ -335,12 +377,15 @@ def time_ms(fn, reps: int = 21, per: int = 10,
     return statistics.median(device), statistics.median(call)
 
 
-def timings(kernel, plain, library=None) -> dict:
-    k_ms, k_call = time_ms(kernel)
-    p_ms, p_call = time_ms(plain)
+def timings(kernel, plain, library=None, **reps) -> dict:
+    """``time_ms`` of the kernel, its plain version and the library call;
+    ``reps`` (reps=, per=, warmup=) for calls too long for the default."""
+    k_ms, k_call = time_ms(kernel, **reps)
+    p_ms, p_call = time_ms(plain, **reps)
     return {"kernel_ms": k_ms, "kernel_call_ms": k_call, "plain_ms": p_ms,
             "plain_call_ms": p_call,
-            "library_ms": None if library is None else time_ms(library)[0]}
+            "library_ms": None if library is None
+            else time_ms(library, **reps)[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +560,85 @@ def check_gram_leaves(dev, m, shapes):
     for name, f in faults.items():
         require(f["rel_err"] > GRAM_TOL, f"vlbfgs_gram gate: planted fault "
                 f"{name} passes ({f['rel_err']} <= {GRAM_TOL})")
+    return row
+
+
+def gram_f64(s, y, g, block: int = ref.GRAM_BLOCK) -> torch.Tensor:
+    """The Gram of a history kept a leaf, summed in f64 a leaf and a
+    column block at a time: the truth both f32 paths are read against."""
+    m = s[0].shape[0]
+    out = torch.zeros((2 * m + 1, 2 * m + 1), dtype=torch.float64,
+                      device=g[0].device)
+    for a, b, c in zip(s, y, g):
+        a2, b2, c2 = a.reshape(m, -1), b.reshape(m, -1), c.reshape(1, -1)
+        for i in range(0, c2.shape[1], block):
+            rows = torch.cat([a2[:, i:i + block].double(),
+                              b2[:, i:i + block].double(),
+                              c2[:, i:i + block].double()])
+            out += rows @ rows.T
+    return out
+
+
+def check_gram_history_bf16(dev, m, shapes):
+    """The train step's Gram: an m-slot bf16 history (s, y) of ``shapes``
+    beside an f32 g, read in place in one launch; held to the plain
+    version (f32 products a leaf and a column block at a time) and to the
+    f64 Gram at GRAM_TOL (gram_err), exactly symmetric, a second call
+    bit-equal.  The bound reads each bf16 row and g once.  The library
+    call is basis @ basis.T on the largest leaf's f32 basis alone (no one
+    call takes the leaves and dtypes together), built outside the
+    timing."""
+    gen = torch.Generator(device=dev).manual_seed(m + 1)
+    bf16 = torch.bfloat16
+    s, y, g = [], [], []
+    for sh in shapes:
+        a = torch.randn((m, *sh), generator=gen, device=dev, dtype=bf16)
+        s.append(a.mul_(1e-2))
+        r = torch.rand((m, *sh), generator=gen, device=dev, dtype=bf16)
+        y.append(r.mul_(1.5).add_(0.5).mul_(a))
+        g.append(torch.randn(sh, generator=gen, device=dev))
+    before = vlbfgs.LAUNCHES
+    got = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    launches = vlbfgs.LAUNCHES - before
+    again = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    want = ops.vlbfgs_gram_leaves(s, y, g, mode="off")
+    torch.cuda.synchronize()
+    err, rel = float((got - want).abs().max()), gram_err(got, want)
+    truth = gram_f64(s, y, g)
+    f64 = {"kernel": gram_err(got.double(), truth),
+           "plain": gram_err(want.double(), truth)}
+    del truth
+    n, D = 2 * m + 1, sum(x.numel() for x in g)
+    reps = dict(reps=5, per=2, warmup=1)
+    times = timings(lambda: ops.vlbfgs_gram_leaves(s, y, g, mode="on"),
+                    lambda: ops.vlbfgs_gram_leaves(s, y, g, mode="off"),
+                    **reps)
+    big = max(range(len(g)), key=lambda i: g[i].numel())
+    basis = torch.cat([s[big].reshape(m, -1).float(),
+                       y[big].reshape(m, -1).float(), g[big].reshape(1, -1)])
+    times["library_ms"] = time_ms(lambda: torch.matmul(basis, basis.T),
+                                  **reps)[0]
+    del basis
+    b_ms, by = bound_ms(D * (2 * m * 2 + 4) + n * n * 4,
+                        2.0 * D * n * (n + 1) / 2)
+    row = {"kernel": "vlbfgs_gram", "call": "bf16 history read in place "
+           "(the LLM train step's)", "shape": [n, D], "m": m,
+           "leaves": len(shapes), "dtype": "bfloat16 s, y; float32 g",
+           "launches_a_call": launches, "max_err": err, "rel_err": rel,
+           "f64_rel_err": f64, "tol": GRAM_TOL, **times,
+           "library_is": "basis @ basis.T of the "
+           f"largest leaf alone ({g[big].numel()} columns, f32)",
+           "bound_ms": b_ms, "bound_by": by}
+    emit(row)
+    require(launches == 1, f"vlbfgs_gram bf16 history: {launches} launches, "
+            "want 1")
+    require(rel <= GRAM_TOL, f"vlbfgs_gram bf16 history m={m}: relative err "
+            f"{rel} > {GRAM_TOL}")
+    require(f64["kernel"] <= GRAM_TOL, f"vlbfgs_gram bf16 history m={m}: "
+            f"relative err {f64['kernel']} against f64 > {GRAM_TOL}")
+    require(bool(torch.equal(got, got.T)), "vlbfgs_gram bf16: not symmetric")
+    require(bool(torch.equal(got, again)), "vlbfgs_gram bf16: two calls "
+            "differ")
     return row
 
 
@@ -1909,6 +2033,160 @@ def serve_hubert(dev) -> dict:
                          min(transformer.LOSS_CHUNK, PREFILL_S))
 
 
+# ---------------------------------------------------------------------------
+# phase "llm_train": the federated LLM train step
+# ---------------------------------------------------------------------------
+def train_steps(cfg, batch, n_micro: int, optimizer: str, steps: int,
+                kernels: str, dev, tag: str):
+    """``steps`` train steps of ``optimizer`` from the seed-0 init on one
+    batch, each from fresh counts: -> (rows, params, opt_state).  Each row
+    holds the step's loss and stats, seconds (host clock ended by a sync),
+    tokens/s, the peak device memory and the launches; a fim_lbfgs step
+    under "auto" launches the Gram once and nothing else, any other step
+    nothing."""
+    ocfg = opt_config(cfg)
+    params, opt = init_train_state(
+        cfg, ocfg, torch.Generator(device=dev).manual_seed(0), optimizer,
+        device=dev)
+    step = make_train_step(cfg, ocfg, n_micro, optimizer, kernels)
+    B, S = tree_leaves(batch)[0].shape[:2]
+    gram = int(optimizer == "fim_lbfgs" and kernels != "off")
+    rows = []
+    for t in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (params, opt, stats), sec = timed_s(lambda: step(params, opt, batch))
+        launches = read_counts()
+        row = {"phase": "llm_train", "run": tag, "arch": cfg.name,
+               "layers": cfg.num_layers, "optimizer": optimizer,
+               "kernels": kernels, "step": t + 1, "batch": B, "seq": S,
+               "n_micro": n_micro,
+               **{k: float(v) for k, v in stats.items()}, "seconds": sec,
+               "tokens_per_s": B * S / sec,
+               "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+               "gram_launches": launches["vlbfgs_gram"]}
+        emit(row)
+        print(f"{tag} step {t + 1}: loss {row['loss']:.5f} dir_norm "
+              f"{row.get('dir_norm', float('nan')):.5g} pair_accepted "
+              f"{row.get('pair_accepted', float('nan')):.0f} {sec:.3f} s "
+              f"{row['tokens_per_s']:.0f} tokens/s peak "
+              f"{row['peak_memory_GB']:.2f} GB Gram launches "
+              f"{row['gram_launches']}", flush=True)
+        require(math.isfinite(row["loss"]), f"{tag} step {t + 1}: loss "
+                f"{row['loss']}")
+        require(row["peak_memory_GB"] < CARD_GB, f"{tag}: peak "
+                f"{row['peak_memory_GB']} GB")
+        require(launches == {**dict.fromkeys(COUNTERS, 0),
+                             "vlbfgs_gram": gram},
+                f"{tag} step {t + 1}: launches {launches}, want {gram} Gram "
+                "and nothing else")
+        rows.append(row)
+    return rows, params, opt
+
+
+def train_twin_gate(auto, off, tag: str) -> dict:
+    """The kernels="off" twin against the "auto" run, step for step (see
+    TRAIN_DIR_TOL): step 1 equal; loss and dir_norm within their bounds."""
+    rel = {"loss": [], "dir_norm": []}
+    for a, o in zip(auto, off, strict=True):
+        for key in rel:
+            rel[key].append(abs(a[key] - o[key]) / abs(o[key]))
+    gate = {"phase": "llm_train_twin", "run": tag, "rel": rel,
+            "tol": {"loss": TRAIN_LOSS_TOL, "dir_norm": TRAIN_DIR_TOL}}
+    emit(gate)
+    require(all(auto[0][k] == off[0][k] for k in rel), f"{tag}: step 1 "
+            f"differs off beside auto ({rel})")
+    require(max(rel["loss"]) <= TRAIN_LOSS_TOL, f"{tag}: losses off beside "
+            f"auto {rel['loss']} > {TRAIN_LOSS_TOL}")
+    require(max(rel["dir_norm"]) <= TRAIN_DIR_TOL, f"{tag}: dir_norm off "
+            f"beside auto {rel['dir_norm']} > {TRAIN_DIR_TOL}")
+    return gate
+
+
+def gram_on_history(opt, tag: str) -> dict:
+    """The Gram kernel against its plain version on the trained history in
+    place (s, y after the last step, the Fisher diagonal as g): GRAM_TOL.
+    Counted apart from the run's launches."""
+    s, y = tree_leaves(opt.history.s), tree_leaves(opt.history.y)
+    g = tree_leaves(opt.fim.diag)
+    got = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    want = ops.vlbfgs_gram_leaves(s, y, g, mode="off")
+    rel = gram_err(got, want)
+    row = {"phase": "llm_train_gram", "run": tag,
+           "dtypes": [str(s[0].dtype)[6:], str(g[0].dtype)[6:]],
+           "live_pairs": int(opt.history.count), "rel_err": rel,
+           "tol": GRAM_TOL}
+    emit(row)
+    require(rel <= GRAM_TOL, f"{tag}: Gram on the trained history, relative "
+            f"err {rel} > {GRAM_TOL}")
+    return row
+
+
+def train_model(cfg, batch, n_micro: int, steps: int, dev,
+                baselines: bool) -> dict:
+    """fim_lbfgs under "auto" (its Gram checked on the trained history),
+    its kernels="off" twin after the first run's state is freed, and (with
+    ``baselines``) fedavg_adam and fedavg_sgd from fresh states.  -> the
+    rows, and the Gram launches of the fim_lbfgs run."""
+    tag = f"{cfg.name}/fim_lbfgs"
+    auto, params, opt = train_steps(cfg, batch, n_micro, "fim_lbfgs", steps,
+                                    "auto", dev, tag)
+    gram = gram_on_history(opt, tag)
+    del params, opt
+    free_cuda()
+    off, params, opt = train_steps(cfg, batch, n_micro, "fim_lbfgs", steps,
+                                   "off", dev, tag + "/off")
+    del params, opt
+    free_cuda()
+    out = {"fim_lbfgs": auto, "off": off, "twin": train_twin_gate(auto, off,
+                                                                   tag),
+           "gram": gram, "gram_launches": sum(r["gram_launches"] for r in auto)}
+    if baselines:
+        for name in ("fedavg_adam", "fedavg_sgd"):
+            out[name], params, opt = train_steps(
+                cfg, batch, n_micro, name, BASELINE_STEPS, "auto", dev,
+                f"{cfg.name}/{name}")
+            del params, opt
+            free_cuda()
+    return out
+
+
+def llm_train(dev, granite=None, hubert=None) -> dict:
+    """granite-8b at full width (depth TRAIN_LAYERS) on TRAIN_B Zipf
+    sequences of TRAIN_S tokens, TRAIN_MICRO cohorts; hubert-xlarge's
+    encoder loss (depth HUBERT_LAYERS) on HUBERT_B x TRAIN_S frames.
+    ``granite``/``hubert``: other configs (a CPU rehearsal's smaller
+    ones)."""
+    granite = granite or granite_8b.CONFIG.replace(num_layers=TRAIN_LAYERS)
+    hubert = hubert or hubert_xlarge.CONFIG.replace(num_layers=HUBERT_LAYERS)
+    n_params = sum(math.prod(s) for s in param_shapes(granite, dev))
+    emit({"phase": "llm_train_config", "arch": granite.name,
+          "layers": granite.num_layers, "params": n_params,
+          "lbfgs_m": granite.lbfgs_m, "history": granite.lbfgs_dtype,
+          "reduced": {"num_layers": f"{granite_8b.CONFIG.num_layers} -> "
+                                    f"{granite.num_layers}"}})
+    toks = torch.from_numpy(zipf_tokens(TRAIN_B, TRAIN_S, granite.vocab_size,
+                                        seed=3)).to(dev)
+    out = {"granite": train_model(granite, {"tokens": toks}, TRAIN_MICRO,
+                                  TRAIN_STEPS, dev, baselines=True)}
+    del toks
+    free_cuda()
+    shape = ShapeConfig("hubert_train", TRAIN_S, HUBERT_B, "train")
+    batch = zoo.synth_batch(hubert, shape,
+                            torch.Generator(device=dev).manual_seed(4))
+    out["hubert"] = train_model(hubert, batch, HUBERT_MICRO, HUBERT_STEPS, dev,
+                                baselines=False)
+    return out
+
+
+def param_shapes(cfg, dev) -> list[tuple]:
+    """The shapes of ``cfg``'s parameter leaves, in tree order (an init on
+    ``dev``, freed)."""
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    return [tuple(p.shape) for p in tree_leaves(params)]
+
+
 def free_cuda() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1951,6 +2229,13 @@ def main() -> int:
     # (the row the kernels line reports), then on a materialised basis
     gram_rows = [check_gram_leaves(dev, 10, leaf_shapes),
                  check_gram(dev, 21, 206_922), check_gram(dev, 21, 10_001)]
+    # the LLM train step's Gram: an m = 10 bf16 history of granite-8b's 12
+    # leaves at TRAIN_LAYERS layers beside an f32 g (the row the kernels
+    # line reports as "llm_train")
+    granite_train = granite_8b.CONFIG.replace(num_layers=TRAIN_LAYERS)
+    gram_rows.append(check_gram_history_bf16(
+        dev, granite_train.lbfgs_m, param_shapes(granite_train, dev)))
+    free_cuda()
     # int8: fim_lbfgs's (g, Γ) payload (16 leaves) in one call, the row
     # the kernels line reports; then each leaf alone, for comparison
     int8_payload = check_int8_payload(dev, leaf_shapes + leaf_shapes)
@@ -2041,6 +2326,15 @@ def main() -> int:
         total[name] = (sum(llm["granite"][key]) + llm["decode_vs_prefill"][key]
                        + sum(llm["hubert"][key]))
 
+    # phase "llm_train": the federated LLM train step; every run from fresh
+    # counts, the Gram once a fim_lbfgs step
+    t0 = time.perf_counter()
+    trained = llm_train(dev)
+    emit({"phase": "llm_train_seconds", "seconds": time.perf_counter() - t0})
+    train_gram = sum(r["gram_launches"] for r in trained.values())
+    total["vlbfgs_gram"] += train_gram
+    free_cuda()
+
     # phase 5: the kernels line, then the result line
     def entry(name, source, replaces, rows, launches):
         main = rows[0]
@@ -2062,7 +2356,12 @@ def main() -> int:
         {**entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
                  "src/repro/kernels/vlbfgs.py:40", gram_rows,
                  total["vlbfgs_gram"]),
-         "launches_are": "one a server step, read in place from the history"},
+         "launches_are": "one a server step, read in place from the "
+                         "history; one a fim_lbfgs LLM train step",
+         "llm_train": {k: gram_rows[-1][k] for k in (
+             "shape", "dtype", "kernel_ms", "kernel_call_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library_is")},
+         "llm_train_launches": train_gram},
         {**entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
                  "src/repro/kernels/codec_ops.py:69",
                  [int8_payload, *int8_rows], total["int8_roundtrip"]),

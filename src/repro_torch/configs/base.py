@@ -178,7 +178,7 @@ class FedConfig:
 _REGISTRY: dict[str, ArchConfig] = {}
 
 # the reference's architectures whose families the port has not reached:
-# MoE (item 9c of ROADMAP section 1), Mamba-2 and the hybrid (9d)
+# MoE (item 7 of ROADMAP section 1), Mamba-2 and the hybrid (item 8)
 NOT_PORTED = ("dbrx-132b", "jamba-v0.1-52b", "mamba2-370m",
               "qwen3-moe-235b-a22b")
 

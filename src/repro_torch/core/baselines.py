@@ -31,7 +31,9 @@ class SgdState(NamedTuple):
     step: torch.Tensor
 
 
-def sgd_init(params) -> SgdState:
+def sgd_init(params, momentum: float = 0.0) -> SgdState:
+    """Zero f32 velocity; ``momentum`` is the reference's argument (the
+    coefficient is ``sgd_update``'s), taken so that callers read the same."""
     return SgdState(momentum=_zeros_f32(params), step=_step0(params))
 
 

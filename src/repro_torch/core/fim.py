@@ -95,17 +95,28 @@ def cohort_microbatch_diag(grad_tree, kernels: str = "off"):
     return _cohort_diag_tree(grad_tree, False, kernels)
 
 
+def _ema(first, old, new, ema: float):
+    new = new.to(old.dtype)
+    return torch.where(first, new, ema * old + (1.0 - ema) * new)
+
+
 def update(state: FimState, new_diag, ema: float) -> FimState:
     """EMA accumulation of the Fisher diagonal; the first step takes the
     new diagonal as is (no bias toward the zero init)."""
     first = state.steps == 0
-
-    def upd(old, new):
-        new = new.to(old.dtype)
-        return torch.where(first, new, ema * old + (1.0 - ema) * new)
-
-    return FimState(diag=tree_map(upd, state.diag, new_diag),
+    return FimState(diag=tree_map(lambda o, n: _ema(first, o, n, ema),
+                                  state.diag, new_diag),
                     steps=state.steps + 1)
+
+
+def update_(state: FimState, new_diag, ema: float) -> FimState:
+    """``update`` written into ``state.diag``'s buffers in place, a leaf at
+    a time (the same numbers; the returned state holds those buffers)."""
+    first = state.steps == 0
+    for old, new in zip(tree_leaves(state.diag), tree_leaves(new_diag),
+                        strict=True):
+        old.copy_(_ema(first, old, new, ema))
+    return FimState(diag=state.diag, steps=state.steps + 1)
 
 
 def mean_diag(state: FimState) -> torch.Tensor:

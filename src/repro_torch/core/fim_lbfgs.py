@@ -48,18 +48,28 @@ def init(params, cfg: FimLbfgsConfig) -> FimLbfgsState:
 
 
 def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
-           learning_rate: Optional[float] = None):
+           learning_rate: Optional[float] = None, donate: bool = False):
     """One server round given aggregated ḡ and Γ̄.
-    Returns (params, state, stats); stats are 0-d device tensors."""
+    Returns (params, state, stats); stats are 0-d device tensors.
+
+    ``donate``: ``state`` is the caller's to give up (the counterpart of
+    the reference trainer donating its optimizer state to the jitted
+    step): the Fisher EMA and the accepted (s, y) pair are written into
+    its buffers in place (``lbfgs.push_``), so neither the (m, ...)
+    history nor the diagonal is copied; the numbers are those of the
+    functional update, bit for bit.  The federated strategies keep the
+    functional update (their callers copy and compare states)."""
     lr = cfg.learning_rate if learning_rate is None else learning_rate
 
-    fim_state = fim.update(state.fim, fim_diag, cfg.fim_ema)
+    fim_state = (fim.update_ if donate else fim.update)(
+        state.fim, fim_diag, cfg.fim_ema)
 
     # Alg. 1 line 6: p_t = -H_t ḡ (the Gram matrix runs through the CUDA
     # kernel when cfg.kernels enables it for the tensors' device)
     p = lbfgs.direction(state.history, grad, kernels=cfg.kernels)
 
     p_norm = tree_norm(p)
+    grad_norm = tree_norm(grad)
     if cfg.max_step_norm:
         # trust region on the actual step ||η p_t|| (not the raw direction)
         pn = p_norm * lr
@@ -72,6 +82,7 @@ def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
 
     # Alg. 1 line 7: ω_{t+1} = ω_t + η p_t
     s = tree_map(lambda pi: (lr * scale * pi.float()).to(pi.dtype), p)
+    del p
     new_params = tree_axpy(1.0, s, params)
 
     # Alg. 1 line 8: y_t = B̄_t s_t  with B̄ = Γ̄ + λI
@@ -82,15 +93,18 @@ def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
     sn, yn = tree_norm(s), tree_norm(y)
     ok = sy > cfg.curvature_eps * sn * yn
 
-    pushed = lbfgs.push(state.history, s, y)
-    history = tree_map(lambda new, old: torch.where(ok, new, old),
-                       pushed, state.history)
+    if donate:
+        history = lbfgs.push_(state.history, s, y, ok)
+    else:
+        pushed = lbfgs.push(state.history, s, y)
+        history = tree_map(lambda new, old: torch.where(ok, new, old),
+                           pushed, state.history)
 
     stats = {
         "dir_norm": p_norm,
         "step_norm": sn,
         "sy": sy,
         "pair_accepted": ok.float(),
-        "grad_norm": tree_norm(grad),
+        "grad_norm": grad_norm,
     }
     return new_params, FimLbfgsState(history, fim_state, state.step + 1), stats

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -59,21 +60,37 @@ def push(h: History, s, y) -> History:
     )
 
 
+def push_(h: History, s, y, ok: torch.Tensor) -> History:
+    """``where(ok, push(h, s, y), h)`` bit for bit, written in place: only
+    slot ``idx`` of each s and y leaf is written (its old pair kept where
+    the 0-d bool ``ok`` is false), so the history is never copied (the
+    counterpart of the reference's donated, aliased update); idx and count
+    move only under ``ok``.  The returned History holds ``h``'s buffers."""
+    slot = h.idx.long().reshape(1)
+    m = tree_leaves(h.s)[0].shape[0]
+
+    def write(b, v):
+        b.index_copy_(0, slot, torch.where(ok, v.to(b.dtype).unsqueeze(0),
+                                           b.index_select(0, slot)))
+
+    tree_map(write, h.s, s)
+    tree_map(write, h.y, y)
+    return History(
+        s=h.s, y=h.y,
+        idx=torch.where(ok, (h.idx + 1) % m, h.idx),
+        count=torch.where(ok, torch.clamp_max(h.count + 1, m), h.count),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Gram matrix
 # ---------------------------------------------------------------------------
 def gram_matrix(h: History, g) -> torch.Tensor:
     """M[i,j] = <b_i, b_j> for b = [s_0.., y_0.., g]; f32 accumulation,
-    one leaf at a time (the plain path: CPU tensors and kernels="off")."""
-    m = tree_leaves(h.s)[0].shape[0]
-    n = 2 * m + 1
-    M = torch.zeros((n, n), dtype=torch.float32, device=_device(g))
-    for sb, yb, gl in zip(tree_leaves(h.s), tree_leaves(h.y), tree_leaves(g),
-                          strict=True):
-        rows = torch.cat([sb.reshape(m, -1).float(), yb.reshape(m, -1).float(),
-                          gl.reshape(1, -1).float()], dim=0)
-        M = M + rows @ rows.T
-    return M
+    one leaf and one column block at a time (the plain path: CPU tensors
+    and kernels="off"; no f32 copy of a whole bf16 history leaf)."""
+    return kernel_ref.vlbfgs_gram_leaves_ref(
+        tree_leaves(h.s), tree_leaves(h.y), tree_leaves(g))
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +147,25 @@ def direction_coeffs(M: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
 
 
 def combine(h: History, g, delta: torch.Tensor):
-    """p = -(Σ_i δ_i s_i + Σ_i δ_{m+i} y_i + δ_{2m} g): local O(d)."""
+    """p = -(Σ_i δ_i s_i + Σ_i δ_{m+i} y_i + δ_{2m} g): local O(d).
+
+    f32 accumulation without an f32 copy of an (m, ...) history leaf, as
+    the reference's ``preferred_element_type`` einsum: an f32 leaf
+    contracts over m in one product; any other (a bf16 history) sums into
+    one f32 buffer slot by slot."""
     m = tree_leaves(h.s)[0].shape[0]
     ds, dy, dg = delta[:m], delta[m:2 * m], delta[2 * m]
 
     def leaf(sb, yb, gl):
-        acc = torch.tensordot(ds, sb.float(), dims=1)
-        acc = acc + torch.tensordot(dy, yb.float(), dims=1)
+        if sb.dtype == yb.dtype == torch.float32:
+            acc = torch.tensordot(ds, sb, dims=1)
+            acc = acc + torch.tensordot(dy, yb, dims=1)
+        else:
+            acc = torch.zeros(gl.shape, dtype=torch.float32, device=gl.device)
+            for i in range(m):
+                acc.addcmul_(sb[i], ds[i])
+            for i in range(m):
+                acc.addcmul_(yb[i], dy[i])
         acc = acc + dg * gl.float()
         return (-acc).to(gl.dtype)
 
@@ -146,12 +175,13 @@ def combine(h: History, g, delta: torch.Tensor):
 def _gram_via_kernel(h: History, g, kernels: str) -> torch.Tensor:
     """Gram matrix through the hand-written kernel, which reads the basis
     [s_0.., y_0.., g] in place from the history's (m, ...) leaves and g's
-    leaves in one launch (the reference concatenates the (2m+1, D) basis
-    first, for one Pallas call)."""
-    def f32(tree):
-        return [leaf.float().contiguous() for leaf in tree_leaves(tree)]
+    leaves in one launch, each group in its own dtype (a bf16 history is
+    read as it is: no f32 copy).  The reference concatenates the (2m+1, D)
+    f32 basis first, for one Pallas call."""
+    def leaves(tree):
+        return [leaf.contiguous() for leaf in tree_leaves(tree)]
 
-    return kernel_ops.vlbfgs_gram_leaves(f32(h.s), f32(h.y), f32(g),
+    return kernel_ops.vlbfgs_gram_leaves(leaves(h.s), leaves(h.y), leaves(g),
                                          mode=kernels)
 
 

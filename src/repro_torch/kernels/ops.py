@@ -68,7 +68,7 @@ def fim_diag_update_leaves(grads, olds, ema: float,
 
 
 def vlbfgs_gram(basis, mode: str = "auto"):
-    """(2m+1, D) basis -> (2m+1, 2m+1) Gram matrix."""
+    """(2m+1, D) basis (f32 or bf16) -> (2m+1, 2m+1) f32 Gram matrix."""
     if resolve(mode, basis.device) == "plain":
         return ref.vlbfgs_gram_ref(basis)
     return _vl.gram(basis)
@@ -76,18 +76,14 @@ def vlbfgs_gram(basis, mode: str = "auto"):
 
 def vlbfgs_gram_leaves(s_leaves, y_leaves, g_leaves, mode: str = "auto"):
     """Gram matrix of the basis [s_0.., y_0.., g] of a history kept a leaf:
-    s and y leaves (m, *shape_i) in slot order, g leaves *shape_i, all f32.
-    The kernel reads them in place in one launch; the plain version
-    concatenates the (2m+1, D) basis in leaf order and runs
-    ``ref.vlbfgs_gram_ref``."""
+    s and y leaves (m, *shape_i) in slot order, g leaves *shape_i; each
+    group f32 or bf16 (a bf16 history beside an f32 gradient).  The kernel
+    reads them in place in one launch; the plain version,
+    ``ref.vlbfgs_gram_leaves_ref``, sums f32 products a leaf and a column
+    block at a time."""
     s_leaves, y_leaves, g_leaves = list(s_leaves), list(y_leaves), list(g_leaves)
     if resolve(mode, g_leaves[0].device) == "plain":
-        def rows(leaves):
-            return torch.cat([x.reshape(x.shape[0], -1) for x in leaves], 1)
-
-        basis = torch.cat([rows(s_leaves), rows(y_leaves),
-                           torch.cat([x.reshape(-1) for x in g_leaves])[None]])
-        return ref.vlbfgs_gram_ref(basis)
+        return ref.vlbfgs_gram_leaves_ref(s_leaves, y_leaves, g_leaves)
     return _vl.gram_leaves(s_leaves, y_leaves, g_leaves)
 
 
@@ -147,7 +143,18 @@ def topk_select(flat, k: int, mode: str = "auto"):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     mode: str = "auto"):
     """(B,H,S,hd) x (B,KV,S,hd) -> (B,H,S,hd): GQA attention with f32
-    softmax, causal and sliding-window masks (``window`` 0 = none)."""
+    softmax, causal and sliding-window masks (``window`` 0 = none).
+
+    Forward only, on every path: the kernel has no backward (nor has the
+    reference's Pallas kernel), and its output, written through ctypes,
+    carries no autograd graph.  So it raises when grad mode is on and q, k
+    or v requires grad, rather than return a result that would cut the
+    gradient silently; a loss runs ``models.attention._chunked_attention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward only: q, k or v requires grad (a "
+            "loss runs the plain chunked attention; see "
+            "models.attention.attn_apply)")
     if resolve(mode, q.device) == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -16,6 +16,9 @@ import torch
 # reachable buckets; csrc/topk.cu uses the same two numbers.
 TOPK_BUCKETS = 512
 TOPK_SHIFT = 22
+# columns of one leaf a plain Gram product takes at once (an f32 block of
+# 2m+1 rows: 352 MB at m = 10)
+GRAM_BLOCK = 1 << 22
 # the masked score of attention (finite, as the reference's: see
 # csrc/flash_attention.cu for why not -inf)
 NEG_INF = -1e30
@@ -38,6 +41,27 @@ def vlbfgs_gram_ref(basis: torch.Tensor) -> torch.Tensor:
     Returns the (n, n) Gram matrix in f32."""
     b = basis.float()
     return b @ b.T
+
+
+def vlbfgs_gram_leaves_ref(s_leaves, y_leaves, g_leaves,
+                           block: int = GRAM_BLOCK) -> torch.Tensor:
+    """Gram matrix of the basis [s_0..s_{m-1}, y_0..y_{m-1}, g] kept a
+    leaf: s and y leaves (m, *shape_i) in slot order, g leaves *shape_i,
+    each f32 or bf16.  Each row is cast to f32 and the products summed in
+    f32, one leaf and at most ``block`` of its columns at a time, so no
+    f32 copy of a whole bf16 history leaf is made.  -> (2m+1, 2m+1) f32."""
+    s_leaves, y_leaves, g_leaves = list(s_leaves), list(y_leaves), list(g_leaves)
+    m = s_leaves[0].shape[0]
+    n = 2 * m + 1
+    out = torch.zeros((n, n), dtype=torch.float32, device=g_leaves[0].device)
+    for s, y, g in zip(s_leaves, y_leaves, g_leaves, strict=True):
+        s2, y2, g2 = s.reshape(m, -1), y.reshape(m, -1), g.reshape(1, -1)
+        for a in range(0, g2.shape[1], block):
+            rows = torch.cat([s2[:, a:a + block].float(),
+                              y2[:, a:a + block].float(),
+                              g2[:, a:a + block].float()])
+            out = out + rows @ rows.T
+    return out
 
 
 def int8_scale(x: torch.Tensor) -> torch.Tensor:

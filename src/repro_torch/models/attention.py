@@ -1,13 +1,15 @@
 """Attention: GQA/MQA/MHA with RoPE, optional sliding window, and KV-cache
 decode with a ring buffer for the sliding window (port of
-``repro.models.attention``, forward only).
+``repro.models.attention``).
 
 Prefill on a CUDA tensor goes through the hand-written flash kernel
 (``kernels.ops.flash_attention``), which computes the function of the
 reference's q-chunked ``_chunked_attention`` (as the reference's Pallas
-kernel does on the TPU); the chunked plain path runs on the CPU and under
-``kernels="off"``.  Decode attention is plain PyTorch, as it is plain
-``jnp.einsum`` in the reference.
+kernel does on the TPU); the chunked plain path runs on the CPU, under
+``kernels="off"``, and under autograd: the kernel has no backward, and the
+reference trains through its jnp ``_chunked_attention`` too.  Decode
+attention is plain PyTorch, as it is plain ``jnp.einsum`` in the
+reference.
 """
 from __future__ import annotations
 
@@ -84,13 +86,16 @@ def _chunked_attention(q, k, v, cfg, positions, causal: bool):
 
 
 def attn_apply(p, cfg, x, causal: bool = True, kernels: str = "auto"):
-    """Full-sequence attention (prefill) at positions 0..S-1.  ``kernels``
-    picks the path as ``ops.resolve`` does: the flash kernel on a CUDA
-    tensor under "auto"/"on", the chunked plain path otherwise."""
+    """Full-sequence attention (train / prefill) at positions 0..S-1.
+    ``kernels`` picks the path as ``ops.resolve`` does: the flash kernel on
+    a CUDA tensor under "auto"/"on", the chunked plain path otherwise, and
+    always the plain path when a gradient flows through q, k or v (the
+    kernel is forward only)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if ops.resolve(kernels, x.device) == "kernel":
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if ops.resolve(kernels, x.device) == "kernel" and not grad:
         window = cfg.window if cfg.attn_variant == "sliding_window" else 0
         # (B,S,H,hd) -> (B,H,S,hd) views: the kernel reads them by stride
         # and returns the output in q's memory layout, so the transpose

@@ -1,5 +1,6 @@
 """Shared model layers: norms, RoPE, SwiGLU MLP, parameter initializers
-(port of ``repro.models.layers``, forward only).
+(port of ``repro.models.layers``; ``rms_norm`` carries the reference's
+custom backward).
 
 Parameters are plain dicts of tensors in the reference's layout: dense
 weights ``(in, out)`` applied as ``x @ W``, stacked layers with a leading
@@ -35,15 +36,46 @@ def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+def _rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(...,) f32 inverse root of the mean square of x's last dim."""
+    xf = x.float()
+    var = torch.einsum("...d,...d->...", xf, xf) / x.shape[-1]
+    return torch.rsqrt(var + eps)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The reference's custom-VJP ``rms_norm`` (``_rms_fwd``/``_rms_bwd``):
+    autograd through the forward would round its bf16 cotangents at other
+    places."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        inv = _rms_inv(x, eps)
+        ctx.save_for_backward(x, scale, inv)
+        return (x * inv[..., None].to(x.dtype)) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        gs = g * scale                                          # (..., d)
+        # <gs, x> per position, f32-accumulated
+        dot = torch.einsum("...d,...d->...", gs.float(), x.float())
+        coef = (inv ** 3) * dot / d                             # (...,) f32
+        dx = gs * inv[..., None].to(x.dtype) - x * coef[..., None].to(x.dtype)
+        xn = x * inv[..., None].to(x.dtype)
+        dscale = (g * xn).float().sum(dim=tuple(range(g.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm: the mean square taken in f32, the inverse root cast to
-    ``x.dtype``, then ``x * inv * scale`` in ``x.dtype`` (the forward of
-    the reference's custom-VJP ``rms_norm``)."""
-    xf = x.float()
-    var = torch.einsum("...d,...d->...", xf, xf) / x.shape[-1]
-    inv = torch.rsqrt(var + eps)
-    return (x * inv[..., None].to(x.dtype)) * scale
+    ``x.dtype``, then ``x * inv * scale`` in ``x.dtype``; its backward is
+    the reference's custom VJP line for line: cotangents in the activation
+    dtype, f32 per-position ``inv`` and ``<g·scale, x>``, ``dscale``
+    summed in f32, then cast."""
+    return _RmsNorm.apply(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """Unified model API over the architecture families the port has reached
-(port of ``repro.models.model``, serving only):
+(port of ``repro.models.model``):
 
     init(cfg, generator, device)    -> params
+    loss_fn(params, cfg, batch)     -> (scalar, metrics)      [train]
     prefill_fn(params, cfg, batch)  -> last-position logits   [prefill]
     init_cache(cfg, B, ctx, device) -> cache                  [decode]
     decode_fn(params, cfg, c, t)    -> (logits, cache)
+    synth_batch(cfg, shape, gen)    -> a random batch of ``shape``
 
 The dense, VLM and audio-encoder families run; MoE, Mamba-2 and the hybrid
-raise ``NotImplementedError`` naming their slice.  The loss and the train
-step are the next slice (ROADMAP section 1, item 9b).
+raise ``NotImplementedError`` naming their slice (ROADMAP section 1, items
+7 and 8).  The train step over ``loss_fn`` is ``launch/train.py``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ def _check(cfg: ArchConfig) -> None:
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid (Jamba) family is not ported yet "
-            "(ROADMAP section 1, item 9d: models/hybrid.py)")
+            "(ROADMAP section 1, item 8: models/hybrid.py)")
     transformer.check_family(cfg)
 
 
@@ -40,6 +42,13 @@ def init(cfg: ArchConfig, generator: torch.Generator | None = None,
         raise ValueError(f"init: generator on {generator.device}, params "
                          f"asked for on {device}")
     return transformer.init_params(cfg, generator)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """(loss, {"ce", "aux"}): ``transformer.encoder_loss`` for an encoder,
+    else the next-token ``lm_loss``; attention runs the plain path."""
+    _check(cfg)
+    return transformer.loss_fn(params, cfg, batch)
 
 
 def prefill_fn(params, cfg: ArchConfig, batch, kernels: str = "auto"):
@@ -62,6 +71,28 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, device="cuda"):
 def decode_fn(params, cfg: ArchConfig, cache, token):
     _check(cfg)
     return transformer.decode_step(params, cfg, cache, token)
+
+
+def synth_batch(cfg: ArchConfig, shape: ShapeConfig,
+                generator: torch.Generator) -> dict:
+    """A random batch of ``shape`` (train or prefill) on the generator's
+    device, in the reference's ``input_specs`` layout: int32 tokens (and
+    labels) below the vocabulary, f32 frame features for an audio
+    encoder."""
+    B, S = shape.global_batch, shape.seq_len
+    dev = generator.device
+
+    def ints(hi):
+        return torch.randint(0, max(hi, 2), (B, S), generator=generator,
+                             device=dev, dtype=torch.int32)
+
+    if cfg.frontend == "audio_embed":
+        out = {"features": torch.randn((B, S, cfg.d_model),
+                                       generator=generator, device=dev)}
+        if shape.kind == "train":
+            out["labels"] = ints(cfg.vocab_size)
+        return out
+    return {"tokens": ints(cfg.vocab_size)}
 
 
 def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:

@@ -53,9 +53,27 @@ def tree_unflatten(template, leaves) -> object:
     return out
 
 
+# elements of a non-f32 leaf that tree_dot casts to f32 at once
+DOT_SLICE = 1 << 22
+
+
+def _leaf_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> in f32.  f32 leaves contract whole; any other leaf (bf16)
+    in slices of ``DOT_SLICE`` elements cast to f32 one at a time, so no
+    f32 copy of the whole leaf is made."""
+    x, y = x.reshape(-1), y.reshape(-1)
+    if x.dtype == y.dtype == torch.float32:
+        return torch.dot(x, y)
+    parts = [torch.dot(x[i:i + DOT_SLICE].float(), y[i:i + DOT_SLICE].float())
+             for i in range(0, x.numel(), DOT_SLICE)]
+    if not parts:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    return torch.stack(parts).sum()
+
+
 def tree_dot(a, b) -> torch.Tensor:
     """<a, b> over every leaf, accumulated in f32."""
-    parts = [torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
+    parts = [_leaf_dot(x, y)
              for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True)]
     return torch.stack(parts).sum()
 
@@ -66,8 +84,69 @@ def tree_axpy(alpha, x, y):
         lambda xi, yi: (alpha * xi.float() + yi.float()).to(yi.dtype), x, y)
 
 
+def tree_scale(alpha, x):
+    """alpha * x, leaf-wise, in f32 and cast back to each leaf's dtype."""
+    return tree_map(lambda xi: (alpha * xi.float()).to(xi.dtype), x)
+
+
+def tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_mul(a, b):
+    """Hadamard product (used for diagonal-FIM * vector products)."""
+    return tree_map(lambda x, y: x * y, a, b)
+
+
 def tree_norm(a) -> torch.Tensor:
     return torch.sqrt(tree_dot(a, a))
+
+
+def tree_zeros_like(a, dtype=None):
+    return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype), a)
+
+
+def tree_ones_like(a, dtype=None):
+    return tree_map(lambda x: torch.ones_like(x, dtype=dtype or x.dtype), a)
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
+
+
+def tree_size(a) -> int:
+    """Total number of scalar parameters."""
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def _slot(index, device) -> torch.Tensor:
+    """A history slot (a host int or a 0-d device tensor) as a (1,) long
+    index on ``device``, so a device index never waits on the host."""
+    return torch.as_tensor(index, device=device).long().reshape(1)
+
+
+def tree_stack_push(buf, x, index):
+    """Write tree ``x`` into slot ``index`` of a stacked (m, ...) buffer,
+    functionally: a new buffer, ``x`` cast to its dtype."""
+    return tree_map(lambda b, xi: b.index_copy(
+        0, _slot(index, b.device), xi.to(b.dtype).unsqueeze(0)), buf, x)
+
+
+def tree_stack_init(x, m: int, dtype=None):
+    """Allocate an (m, ...) zero history buffer shaped like tree ``x``."""
+    return tree_map(lambda xi: torch.zeros((m,) + tuple(xi.shape),
+                                           dtype=dtype or xi.dtype,
+                                           device=xi.device), x)
+
+
+def tree_stack_index(buf, index):
+    """Read slot ``index`` from a stacked history buffer."""
+    return tree_map(lambda b: b.index_select(0, _slot(index, b.device))[0],
+                    buf)
 
 
 def ravel(tree) -> tuple[torch.Tensor, Callable]:

@@ -251,6 +251,119 @@ def test_gram_leaves_beyond_one_table_and_empty(cuda):
     assert torch.equal(zero, torch.zeros((5, 5), device=cuda))
 
 
+def _bf16_history(cuda, shapes, m, seed):
+    """An m-slot bf16 history (s, y) of ``shapes`` beside an f32 g."""
+    s, y, g = _history(cuda, shapes, m, seed)
+    return [a.bfloat16() for a in s], [a.bfloat16() for a in y], g
+
+
+# bf16 rows of n columns start 2n bytes apart: (10,) puts odd rows 4 bytes
+# and rows 2 mod 4 8 bytes off 16 (the element-wise and 8-byte copies);
+# (7, 5), (3,), (33, 129) and (4097,) leave ragged tails in every slab
+BF16_SHAPES = [[(10,), (7, 5), (3,), (33, 129), (4097,), (1,)],
+               [(64, 4096), (4096,), (512, 128), (49_152 // 8, 16)]]
+
+
+@pytest.mark.parametrize("m", [1, 4, 10])
+@pytest.mark.parametrize("shapes", BF16_SHAPES, ids=["ragged", "llm_like"])
+def test_gram_leaves_bf16_history_read_in_place(cuda, m, shapes):
+    """A bf16 history beside an f32 g, read in place in one launch: each
+    entry within 1e-5 of its Cauchy-Schwarz scale of the f64 product of
+    the same (exactly widened) values, held against the plain version the
+    same way, exactly symmetric and deterministic."""
+    s, y, g = _bf16_history(cuda, shapes, m, seed=100 + m)
+    basis = _basis([a.float() for a in s], [a.float() for a in y], g)
+    before = vlbfgs.LAUNCHES
+    got = ops.vlbfgs_gram_leaves(s, y, g, mode="on")
+    assert vlbfgs.LAUNCHES == before + 1
+    _assert_gram_close(got, basis)
+    assert torch.equal(got, ops.vlbfgs_gram_leaves(s, y, g, mode="on"))
+    plain = ops.vlbfgs_gram_leaves(s, y, g, mode="off")
+    assert _gram_err(got, plain.double()) <= 1e-5
+    # the f32 history of the same values gives the same Gram
+    f32 = ops.vlbfgs_gram_leaves([a.float() for a in s],
+                                 [a.float() for a in y], g, mode="on")
+    assert _gram_err(got, f32.double()) <= 1e-5
+
+
+def test_gram_bf16_misaligned_bases_and_groups(cuda):
+    """bf16 rows whose group starts one element into its buffer (2 bytes
+    off: every row element by element), an all-bf16 basis through the
+    basis entry point, and a bf16 g beside an f32 history."""
+    shapes = [(5,), (4097,), (129,)]
+    s, y, g = _bf16_history(cuda, shapes, 3, seed=7)
+    buf = torch.randn((3 * 4097 + 1,), device=cuda).bfloat16()
+    s[1] = buf[1:].view(3, 4097)
+    basis = _basis([a.float() for a in s], [a.float() for a in y], g)
+    _assert_gram_close(ops.vlbfgs_gram_leaves(s, y, g, mode="on"), basis)
+    flat = basis.bfloat16()
+    _assert_gram_close(ops.vlbfgs_gram(flat, mode="on"), flat.float())
+    s32 = [a.float() for a in s]
+    y32 = [a.float() for a in y]
+    gb = [a.bfloat16() for a in g]
+    _assert_gram_close(ops.vlbfgs_gram_leaves(s32, y32, gb, mode="on"),
+                       _basis(s32, y32, [a.float() for a in gb]))
+    with pytest.raises(ValueError, match="one dtype"):
+        vlbfgs.gram_leaves([s[0], s32[1], s[2]], y, g)
+
+
+def test_flash_attention_refuses_inputs_that_require_grad(cuda):
+    """The kernel has no backward: with grad mode on and an input that
+    requires grad the wrapper raises instead of returning a result with no
+    graph; under no_grad, or with plain inputs, it runs."""
+    q, k, v = _qkv(cuda, 1, 4, 2, 128, 64, torch.bfloat16, 3)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.flash_attention(q.requires_grad_(), k, v, mode="on")
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, mode="on")
+    assert not out.requires_grad
+    assert torch.equal(out, ops.flash_attention(q.detach(), k, v, mode="on"))
+
+
+def test_llm_train_step_kernels_auto_beside_off(cuda):
+    """The LLM train step at the granite smoke config in f32 on the card:
+    3 fim_lbfgs steps with kernels="auto" launch the Gram once a step and
+    nothing else; the kernels="off" twin from the same init on the same
+    batches launches nothing.  Step 1 is bit-identical (an empty history
+    gives the steepest-descent direction whatever the Gram reads); later
+    steps differ only by the Gram's f32 summation order: losses within
+    1e-5 and dir_norm within 1e-4 relative.  The attention gradients are
+    non-zero (the loss runs the plain attention)."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    cfg = granite_8b.smoke_config().replace(remat=True)
+    ocfg = train.opt_config(cfg)
+    toks = torch.from_numpy(zipf_tokens(4, 128, cfg.vocab_size, seed=5)).to(cuda)
+    runs = {}
+    for mode in ("auto", "off"):
+        params, opt = train.init_train_state(
+            cfg, ocfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        step = train.make_train_step(cfg, ocfg, n_micro=2, kernels=mode)
+        before = (vlbfgs.LAUNCHES, flash_attention.LAUNCHES)
+        stats = []
+        for _ in range(3):
+            params, opt, st = step(params, opt, {"tokens": toks})
+            stats.append({k: float(v) for k, v in st.items()})
+        runs[mode] = (stats, (vlbfgs.LAUNCHES - before[0],
+                              flash_attention.LAUNCHES - before[1]))
+    (auto, auto_n), (off, off_n) = runs["auto"], runs["off"]
+    assert auto_n == (3, 0) and off_n == (0, 0)
+    assert auto[0] == off[0]
+    for a, o in zip(auto, off):
+        assert np.isfinite(a["loss"])
+        assert abs(a["loss"] - o["loss"]) <= 1e-5 * abs(o["loss"])
+        assert abs(a["dir_norm"] - o["dir_norm"]) <= 1e-4 * o["dir_norm"]
+    params = model.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    wq = params["layers"]["attn"]["wq"].requires_grad_()
+    loss, _ = model.loss_fn(params, cfg, {"tokens": toks})
+    (gq,) = torch.autograd.grad(loss, [wq])
+    assert float(gq.abs().max()) > 0
+
+
 @pytest.mark.parametrize("shape", [(7,), (1000,), (33, 129), (300, 17),
                                    (3, 3, 16, 32), (6272, 128)])
 def test_int8_kernel_bit_identical_to_plain(cuda, shape):

@@ -90,3 +90,51 @@ def test_every_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# entry points of the LLM train-step slice, by module
+TRAIN_NAMES = {
+    "repro_torch.launch.train": ["make_train_step", "init_train_state",
+                                 "opt_config", "make_prefill_step",
+                                 "make_serve_step"],
+    "repro_torch.models.transformer": ["_chunked_ce", "lm_loss",
+                                       "encoder_loss", "loss_fn"],
+    "repro_torch.models.model": ["loss_fn", "synth_batch"],
+    "repro_torch.models.layers": ["rms_norm"],
+    "repro_torch.utils.pytree": ["tree_scale", "tree_add", "tree_sub",
+                                 "tree_mul", "tree_zeros_like",
+                                 "tree_ones_like", "tree_cast", "tree_size",
+                                 "tree_stack_init", "tree_stack_push",
+                                 "tree_stack_index"],
+    "repro_torch.core.lbfgs": ["push_"],
+    "repro_torch.core.fim": ["update_"],
+    "repro_torch.kernels.ref": ["vlbfgs_gram_leaves_ref"],
+}
+
+
+def test_train_slice_entry_points_import_with_jax_blocked():
+    """The train step's modules import, and carry their entry points, in
+    a fresh interpreter where ``import jax`` fails; the example that drives
+    them runs its argument parser there too."""
+    code = (
+        "import importlib, runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"names = {TRAIN_NAMES!r}\n"
+        "for mod, attrs in names.items():\n"
+        "    m = importlib.import_module(mod)\n"
+        "    missing = [a for a in attrs if not hasattr(m, a)]\n"
+        "    assert not missing, (mod, missing)\n"
+        "sys.argv = ['torch_llm_fed_train.py', '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({str(ROOT / 'examples' / 'torch_llm_fed_train.py')!r},"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "leaked = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -161,6 +161,36 @@ def test_resolve_table_on_cpu():
         ops.resolve("sometimes", "cpu")
 
 
+@pytest.mark.parametrize("m,D", [(1, 512), (4, 4097), (10, 12_300)])
+def test_gram_leaves_plain_mixed_dtypes_matches_pallas_bf16(m, D):
+    """The plain Gram over a bf16 history (s, y) beside an f32 g against
+    the Pallas kernel on the same values as one bf16 (2m+1, D) basis
+    (``force_kernel``, interpret mode on the CPU), which casts each tile
+    to f32 in the kernel: g's row is bf16 there and its exact f32 widening
+    here, so the two compute one function.  Each entry within 1e-5 of its
+    Cauchy-Schwarz scale, sqrt(G_ii G_jj); the leaves cut D into three
+    with a ragged last one, and the plain version's column blocks cut
+    them again (``block``)."""
+    rng = np.random.default_rng(m * D)
+    basis = rng.normal(size=(2 * m + 1, D)).astype(ml_dtypes.bfloat16)
+    want = np.asarray(rops.vlbfgs_gram(jnp.asarray(basis), force_kernel=True),
+                      np.float64)
+    b = torch.from_numpy(basis.astype(np.float32)).bfloat16()
+    cuts = [0, D // 3, D // 3 + D // 2, D]
+    s = [b[:m, a:c].contiguous() for a, c in zip(cuts, cuts[1:])]
+    y = [b[m:2 * m, a:c].contiguous() for a, c in zip(cuts, cuts[1:])]
+    g = [b[2 * m, a:c].float() for a, c in zip(cuts, cuts[1:])]
+    for got in (ops.vlbfgs_gram_leaves(s, y, g),
+                ref.vlbfgs_gram_leaves_ref(s, y, g, block=1000)):
+        d = np.sqrt(np.diagonal(want))
+        err = np.abs(got.numpy() - want) / np.outer(d, d)
+        assert err.max() <= 1e-5
+    assert ops.vlbfgs_gram(b).dtype == torch.float32
+    np.testing.assert_allclose(ops.vlbfgs_gram(b).numpy(),
+                               ops.vlbfgs_gram_leaves(s, y, g).numpy(),
+                               rtol=1e-5, atol=1e-5 * float(want.max()))
+
+
 def test_on_with_cpu_tensors_raises_everywhere():
     g = torch.zeros((4, 8))
     with pytest.raises(ValueError):

@@ -498,6 +498,85 @@ def test_gram_copies_fall_back_at_misaligned_rows():
     assert kinds["4"] == 2 * 4 * 4 and kinds["16"] == 3 * 4
 
 
+def gram_copies_bf16(cols: int, count, tile: int, chunk: int,
+                     base: int = 0) -> dict:
+    """One bf16 group's slab copies, as issue_slab makes them for a bf16
+    row: {"16": 16-byte copies (an even quad and the next, where the row's
+    slab starts 16-byte aligned), "8": 8-byte copies of a quad (8-byte
+    aligned), "2": single elements (elsewhere)}; asserts each element of
+    each row lands exactly once, in its place in the slab (2 bytes an
+    element) and the tail zero-filled."""
+    kinds = {"16": 0, "8": 0, "2": 0}
+    for r in range(count):
+        seen = np.zeros(cols, np.int64)
+        for c_begin in range(0, cols, chunk):
+            c_end = min(c_begin + chunk, cols)
+            for c in range(c_begin, c_end, tile):
+                width = min(tile, c_end - c)
+                src = base + (r * cols + c) * 2
+                slab = np.zeros(tile, np.int64)      # copies into the slab
+                for q in range(tile // 4):
+                    valid = min(max(width - 4 * q, 0), 4)
+                    if src % 16 == 0:
+                        if q % 2:
+                            continue
+                        pair = min(max(width - 4 * q, 0), 8)
+                        slab[4 * q:4 * q + 8] += 1
+                        seen[c + 4 * q:c + 4 * q + pair] += 1
+                        kinds["16"] += 1
+                    elif src % 8 == 0:
+                        slab[4 * q:4 * q + 4] += 1
+                        seen[c + 4 * q:c + 4 * q + valid] += 1
+                        kinds["8"] += 1
+                    else:
+                        slab[4 * q:4 * q + 4] += 1
+                        seen[c + 4 * q:c + 4 * q + valid] += 1
+                        kinds["2"] += 4
+                assert (slab == 1).all()             # every slot written once
+        assert (seen == 1).all()
+    return kinds
+
+
+@pytest.mark.parametrize("cols,base,want", [
+    (4096, 0, "16"), (4096 * 14336, 0, "16"),   # granite's leaves
+    (10, 0, None), (12, 0, None), (4097, 0, None), (96, 2, "2"),
+    (96, 8, "8")])
+def test_gram_bf16_copies_cover_each_row_once(cols, base, want):
+    """bf16 rows (2 bytes an element) under the plan a bf16 group gets
+    (chunks of 8 columns' multiples): 16-byte copies where a row's slab
+    starts 16-byte aligned, 8-byte where 8-byte aligned, single elements
+    elsewhere; every element once, at every width.  Rows of 10 columns
+    start 20 bytes apart, so all three kinds occur; granite's leaves take
+    16-byte copies only."""
+    _, lanes, tile = vlbfgs.tile_shape(21)
+    _, _, chunk, _ = vlbfgs.leaf_plan(21, [min(cols, 1 << 20)], N_SM, 8)
+    assert chunk % 8 == 0
+    kinds = gram_copies_bf16(min(cols, 1 << 20), 10, tile, chunk, base)
+    if want is not None:
+        assert {k for k, v in kinds.items() if v} == {want}
+    elif cols == 10:
+        assert all(kinds.values())
+
+
+def test_gram_long_leaves_take_capped_chunks():
+    """A chunk holds at most MAX_CHUNK columns (the train step's 838.9 M
+    columns make 12,803 blocks in waves, not 132 blocks of 6.4 M), unless
+    the reducers' shared memory cannot hold that many partials; the CNN's
+    plan stays as it was."""
+    granite = [201_326_592, 4096, 201_326_592, 8192, 2 * 4096 * 4096,
+               2 * 4096 * 1024, 2 * 4096 * 1024, 2 * 4096 * 4096,
+               2 * 4096 * 14336, 2 * 4096 * 14336, 2 * 14336 * 4096, 8192]
+    lanes, tile, chunk, first = vlbfgs.leaf_plan(21, granite, N_SM, 8)
+    assert chunk == vlbfgs.MAX_CHUNK and first[-1] == 12_803
+    for n in (21, 41, 64):
+        _, _, chunk, first = vlbfgs.leaf_plan(n, [10 ** 9], N_SM)
+        pairs = -(-n * (n + 1) // 2 // vlbfgs.REDUCERS)
+        sums = -(-first[-1] // vlbfgs.RANGE) * pairs * 4
+        assert sums <= vlbfgs.MAX_SMEM and chunk >= vlbfgs.MAX_CHUNK
+    cnn = [16, 144, 32, 4608, 128, 200_704, 10, 1280]
+    assert vlbfgs.leaf_plan(21, cnn, N_SM)[2] == 1632
+
+
 @pytest.mark.parametrize("n,threads", [(21, 384), (1, 128), (64, 288), (9, 384),
                                        (41, 352)])
 def test_gram_slab_copies_cover_the_quad_grid_once(n, threads):
@@ -611,7 +690,7 @@ def test_python_launch_constants_mirror_the_cuda_sources():
         "kStages": vlbfgs.STAGES, "kMaxThreads": vlbfgs.MAX_THREADS,
         "kT": vlbfgs.TILE_EDGE, "kRange": vlbfgs.RANGE,
         "kReducers": vlbfgs.REDUCERS}
-    assert vlbfgs.STAGE_BYTES <= v["kMaxSmem"]
+    assert vlbfgs.STAGE_BYTES <= v["kMaxSmem"] == vlbfgs.MAX_SMEM
     f = _constexprs("fim_diag")
     assert (f["kThreads"], f["kMaxLeaves"]) == (fim_diag.THREADS,
                                                  fim_diag.MAX_LEAVES)

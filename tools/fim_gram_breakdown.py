@@ -71,15 +71,16 @@ _STAGES = "constexpr int kStages = 4;"
 CUTS = {
     "launch": [("  const int l = leaf_of(t, blockIdx.x);\n",
                 "  const int l = leaf_of(t, blockIdx.x);\n" + _STOP)],
-    "copies": [("    if (my_tile < s.n_tiles) {\n", "    if (s.n < 0) {\n"),
+    "copies": [("    if (on_tile) {\n", "    if (s.n < 0) {\n"),
                (_RED, _STOP + _RED)],
     "loop": [(_RED, _STOP + _RED)],
     "partials": [(_ARRIVE, _STOP + _ARRIVE)],
-    "compute": [("    if (j < slabs) issue_slab(", "    if (s.n < 0) issue_slab("),
-                ("    if (next < slabs)\n      issue_slab(",
-                 "    if (s.n < 0)\n      issue_slab("),
+    "compute": [("    if (j < slabs)\n      issue_slab<kAny>(",
+                 "    if (s.n < 0)\n      issue_slab<kAny>("),
+                ("    if (next < slabs)\n      issue_slab<kAny>(",
+                 "    if (s.n < 0)\n      issue_slab<kAny>("),
                 (_RED, _STOP + _RED)],
-    "copies8": [("    if (my_tile < s.n_tiles) {\n", "    if (s.n < 0) {\n"),
+    "copies8": [("    if (on_tile) {\n", "    if (s.n < 0) {\n"),
                 (_RED, _STOP + _RED),
                 (_STAGES, _STAGES.replace("= 4;", "= 8;"))],
     # whole kernels with another number of shared-memory stages
@@ -115,10 +116,12 @@ def gram_call(fn, vlbfgs, _build, s, y, g):
     out = torch.empty((n, n), device=dev)
     addrs = [p for a, b, c in zip(s, y, g)
              for p in (a.data_ptr(), b.data_ptr(), c.data_ptr())]
+    # trees from before the bf16 row groups take no dtype flags
+    half = ((ctypes.c_int * 3)(0, 0, 0),) if hasattr(vlbfgs, "DTYPES") else ()
     args = ((ctypes.c_int64 * len(addrs))(*addrs),
             (ctypes.c_int64 * len(cols))(*cols),
             (ctypes.c_int * len(first))(*first), len(cols),
-            (ctypes.c_int * 3)(m, m, 1), lanes, tile, chunk,
+            (ctypes.c_int * 3)(m, m, 1), *half, lanes, tile, chunk,
             partial.data_ptr(), tickets.data_ptr(), out.data_ptr())
 
     def call():
