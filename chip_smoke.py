@@ -7,9 +7,11 @@ strategies at the full width of the paper's F-MNIST CNN through the
 kernels, the cohort simulator, checkpoint/resume and the fleet engine's
 device backend, serves granite-8b and hubert-xlarge at their full
 published widths through the flash-attention kernels (bf16 on the
-tensor-core kernel, f32 on the SIMT kernel), and trains both at full
-width with the federated LLM train step (FIM-L-BFGS over microbatch
-cohorts, the Gram kernel reading the bf16 history in place).
+tensor-core kernel, f32 on the SIMT kernel), trains both at full width
+with the federated LLM train step (FIM-L-BFGS over microbatch cohorts,
+the Gram kernel reading the bf16 history in place), then serves the MoE,
+Mamba-2 and hybrid families (qwen3-moe-235b, dbrx-132b, jamba-52b,
+mamba2-370m) at full width and trains mamba2-370m at full depth.
 
     python3 chip_smoke.py
 
@@ -25,7 +27,10 @@ Phases (any failure raises and exits non-zero):
      four-launch path timed beside it, and one n above the cluster's
      capacity (the four-launch path); the Gram read in place from an
      m = 10 bf16 history of granite-8b's 12 leaves at 2 layers beside an
-     f32 g (the train step's, 838.9 M columns);
+     f32 g (the train step's, 838.9 M columns), and of mamba2-370m's at
+     its 48 layers (419.7 M columns); flash attention at the prefill
+     shapes of granite, hubert, qwen3-moe (64 q heads on 4 KV heads) and
+     dbrx (48 on 8);
   3. the main paths, each 5 rounds on 60,000 synthetic F-MNIST examples,
      100 clients, 20 per round, non-IID-2: fim_lbfgs under
      compress="none", "int8" and "topk:0.1", and fedavg_sgd under
@@ -83,6 +88,19 @@ Phases (any failure raises and exits non-zero):
      fedavg_sgd; then hubert-xlarge's encoder loss at full width, 12 of 48
      layers, 2 x 4,096 frames, 2 fim_lbfgs steps and their twin.  Each step
      prints its loss, seconds, tokens/s, peak memory and Gram launches;
+  llm_families. qwen3-moe-235b-a22b (2 of 94 layers), dbrx-132b (2 of
+     40), jamba-v0.1-52b (one period of 8 of its 32 layers) and
+     mamba2-370m (all 48) at full width in bf16, each from fresh counts
+     and freed before the next: 2 prefills of 2 x 4,096 Zipf tokens (one
+     tensor-core flash launch an attention layer), the kernels="off" twin
+     on the last 512 positions with its routing pinned to the auto run's
+     (FAMILY_OFF_TOL) and the wiring controls, greedy decode of 8 streams
+     for 64 steps, each MoE layer's dropped share; decode against prefill
+     in f32 at a capacity that drops nothing (qwen3-moe 2 layers,
+     mamba2 48, jamba 8; the SIMT kernel); one MoE layer of qwen3-moe
+     and of dbrx in f32 against moe_apply_plain over 8,192 tokens; then
+     mamba2-370m trained at full width and depth (3 fim_lbfgs steps of 4 x
+     4,096 tokens, one Gram launch each, and the kernels="off" twin);
   5. one JSON line listing every ported kernel, then the result line.
 
 Needs CUDA and about 65 GB of device memory at its peak (the train
@@ -93,6 +111,7 @@ of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -110,7 +129,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import granite_8b, hubert_xlarge  # noqa: E402
+from repro_torch.configs import (dbrx_132b, granite_8b,  # noqa: E402
+                                 hubert_xlarge, jamba_52b, mamba2_370m,
+                                 qwen3_moe_235b)
 from repro_torch.configs.base import FedConfig, ShapeConfig  # noqa: E402
 from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
@@ -124,7 +145,7 @@ from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
 from repro_torch.launch.train import (init_train_state,  # noqa: E402
                                       make_prefill_step, make_serve_step,
                                       make_train_step, opt_config)
-from repro_torch.models import cnn, transformer  # noqa: E402
+from repro_torch.models import attention, cnn, moe, transformer  # noqa: E402
 from repro_torch.models import model as zoo  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
@@ -312,6 +333,56 @@ TRAIN_DIR_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-4
 # the card's memory
 CARD_GB = 80.0
+# phase "llm_families": the MoE, Mamba-2 and hybrid families served at full
+# published width in bf16, each from fresh counts and freed before the
+# next, with its depth cut to fit the card (a "reduced" field says so):
+# arch -> (config module, layers served)
+FAMILIES = {"qwen3-moe-235b-a22b": (qwen3_moe_235b, 2),
+            "dbrx-132b": (dbrx_132b, 2),
+            "jamba-v0.1-52b": (jamba_52b, 8),
+            "mamba2-370m": (mamba2_370m, 48)}
+# kernels="off" beside "auto" for these prefills, on the logits of the last
+# LOSS_CHUNK positions of each prompt, position by position.  Top-k routing
+# turns noise into jumps: a pick whose probability sits within the bf16
+# forward's noise of the k-th largest changes experts (or moves a later
+# pick of its expert past the capacity), which moves that token's output by
+# O(1), and in a later layer attention spreads it into every later
+# position's input, whose routing flips in turn (qwen3-moe's top-8 of 128
+# experts has the tightest gaps).  So the off run routes as the auto run
+# did: RouteRecorder(pin=) gives each of its MoE calls the auto run's
+# expert indices, the gates renormalised from its own probabilities at
+# them, and counts the positions whose own choice differed (reported, not
+# gated); a run with its own routing is reported beside it (flipped
+# positions excluded).  What is left is the bf16 forward's noise floor from
+# the attention's summation order, as for granite (1.41 % / 1.62 % at 36
+# layers): here 2 attention layers whose output is small beside the MoE's,
+# so a few tenths of a percent is expected.  Bounds: granite's 3.5 % on
+# max|diff| / max|logits| and 1.5 % on the rms ratio for the 2-layer MoE
+# models; jamba, whose one attention layer comes after 7 Mamba layers of
+# 8, 1.5 % and 0.5 %.  wiring_controls (the mask flipped, the q -> kv head
+# map rolled by one head; routing pinned the same way) must fail them.
+# mamba2-370m has no attention: its two runs run the same ops and must be
+# equal.
+FAMILY_OFF_TOL = {"qwen3-moe-235b-a22b": {"max": 0.035, "rms": 0.015},
+                  "dbrx-132b": {"max": 0.035, "rms": 0.015},
+                  "jamba-v0.1-52b": {"max": 0.015, "rms": 0.005},
+                  "mamba2-370m": {"max": 0.0, "rms": 0.0}}
+# decode against prefill in f32 at full width, with capacity_factor E / k
+# so that no pick can drop (each expert then holds the whole group): arch ->
+# (layers, tokens, bound on max|diff| / max|logits|).  qwen3-moe holds
+# DECODE_TOL as granite does; the SSM models 1e-3, the reference's own
+# bound (tests/test_decode_consistency.py): the chunked SSD and the
+# recurrence sum the state's decays in other orders (cumulative exp)
+FAMILY_F32 = {"qwen3-moe-235b-a22b": (2, DECODE_T, DECODE_TOL),
+              "mamba2-370m": (48, DECODE_T, 1e-3),
+              "jamba-v0.1-52b": (8, 32, 1e-3)}
+# the MoE dispatch against moe_apply_plain at full width in f32, one layer,
+# MOE_B x MOE_S tokens (8 groups of 1,024): the same products summed by
+# other matmul shapes, and the k picks by index_add -> 1e-5 of max|out|;
+# the keep mask and the dropped share equal.  The tokens are rows of a
+# random table picked by Zipf ids, so that routing crowds experts and
+# drops picks, as in serving
+MOE_B, MOE_S, MOE_PLAIN_TOL = 2, 4096, 1e-5
 
 
 def reset_counts() -> None:
@@ -1874,22 +1945,20 @@ def wiring_controls(cfg, params, batch, n_out: int, off) -> dict:
         hidden, _ = transformer.forward(p, c, inputs, kernels="off")
         return transformer.logits_fn(p, cfg, hidden[:, -n_out:])
 
-    attn = dict(params["layers"]["attn"])
-    for name in ("wk", "wv"):
-        attn[name] = torch.roll(attn[name], hd, dims=-1)
-    rolled = {**params, "layers": {**params["layers"], "attn": attn}}
     return {"mask": rel_diff(logits(params, cfg.replace(
                 is_encoder=not cfg.is_encoder)), off),
-            "head_map": rel_diff(logits(rolled, cfg), off)}
+            "head_map": rel_diff(logits(with_rolled_heads(cfg, params, hd),
+                                        cfg), off)}
 
 
-def prefill_phase(cfg, params, batch, n_out: int) -> dict:
-    """PREFILL_CALLS prefills through the kernel (one launch a layer each,
-    no other kernel), then one with kernels="off" (no launch), and the
-    logits of the two (the last position, or an encoder's last frames)
-    held within OFF_TOL of their scale; wiring_controls shows that bound
-    rejects a wrong mask or head map."""
-    L = cfg.num_layers
+def timed_prefills(cfg, params, batch):
+    """PREFILL_CALLS prefills through make_prefill_step, each from fresh
+    counts: one flash launch an attention layer and no other kernel, each
+    on the tensor-core kernel for a bf16 model.  -> (the last call's
+    logits, seconds, flash launches, tensor-core launches), a call each."""
+    n = attention_layers(cfg)
+    # a bf16 model's every launch goes through the tensor-core kernel
+    tc = n if cfg.dtype == "bfloat16" else 0
     prefill = make_prefill_step(cfg)
     seconds, flash_launches, tc_launches, logits = [], [], [], None
     for call in range(PREFILL_CALLS):
@@ -1899,18 +1968,49 @@ def prefill_phase(cfg, params, batch, n_out: int) -> dict:
         launches = read_counts()
         flash_launches.append(launches["flash_attention"])
         tc_launches.append(launches["flash_attention_tc"])
-        # a bf16 model's every launch goes through the tensor-core kernel
-        tc = L if cfg.dtype == "bfloat16" else 0
-        require(launches == {**dict.fromkeys(COUNTERS, 0), "flash_attention": L,
+        require(launches == {**dict.fromkeys(COUNTERS, 0), "flash_attention": n,
                              "flash_attention_tc": tc},
                 f"{cfg.name} prefill call {call}: launches {launches}, "
-                f"want {L} flash_attention, {tc} on the tensor-core kernel")
+                f"want {n} flash_attention, {tc} on the tensor-core kernel")
+    require(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: logits "
+            "not finite")
+    return logits, seconds, flash_launches, tc_launches
+
+
+def greedy_decode(cfg, params, dev):
+    """DECODE_B streams greedy-decoded for DECODE_STEPS steps from an empty
+    cache through make_serve_step, from fresh counts.  -> (seconds on the
+    host clock ended by a sync, the cache, the last tokens, whether every
+    logit was finite)."""
+    serve = make_serve_step(cfg)
+    cache = zoo.init_cache(cfg, DECODE_B, DECODE_STEPS, device=dev)
+    # one start token a stream, so the streams differ
+    tok = torch.arange(DECODE_B, dtype=torch.int32, device=dev)[:, None]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, cache = serve(params, cache, tok)         # (B, 1, V)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)  # greedy (B, 1)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, cache, tok, bool(finite)
+
+
+def prefill_phase(cfg, params, batch, n_out: int) -> dict:
+    """PREFILL_CALLS prefills through the kernel (timed_prefills), then one
+    with kernels="off" (no launch), and the logits of the two (the last
+    position, or an encoder's last frames) held within OFF_TOL of their
+    scale; wiring_controls shows that bound rejects a wrong mask or head
+    map."""
+    L = cfg.num_layers
+    logits, seconds, flash_launches, tc_launches = timed_prefills(cfg, params,
+                                                                  batch)
     B, S = next(iter(batch.values())).shape[:2]
     require(tuple(logits.shape) == (B, n_out, cfg.vocab_size)
             and logits.dtype == torch.float32,
             f"{cfg.name} prefill: logits {tuple(logits.shape)} {logits.dtype}")
-    require(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: logits "
-            "not finite")
     reset_counts()
     off, off_s = timed_s(lambda: make_prefill_step(cfg, kernels="off")(params,
                                                                        batch))
@@ -1951,20 +2051,7 @@ def serve_granite(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     row = prefill_phase(cfg, params, {"tokens": toks}, 1)
 
-    serve = make_serve_step(cfg)
-    cache = zoo.init_cache(cfg, DECODE_B, DECODE_STEPS, device=dev)
-    # one start token a stream, so the streams differ
-    tok = torch.arange(DECODE_B, dtype=torch.int32, device=dev)[:, None]
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(DECODE_STEPS):
-        logits, cache = serve(params, cache, tok)         # (B, 1, V)
-        finite &= torch.isfinite(logits).all()
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)  # greedy (B, 1)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    decode_s, cache, tok, finite = greedy_decode(cfg, params, dev)
     launches = read_counts()
     row.update({"decode_batch": DECODE_B, "decode_steps": DECODE_STEPS,
                 "decode_s": decode_s,
@@ -1975,7 +2062,7 @@ def serve_granite(dev) -> dict:
     emit({"phase": "llm_decode", **{k: row[k] for k in (
         "decode_batch", "decode_steps", "decode_s", "decode_tokens_per_s",
         "decode_ms_per_step", "cache_pos", "sample", "peak_memory_GB")}})
-    require(bool(finite), f"{cfg.name} decode: logits not finite")
+    require(finite, f"{cfg.name} decode: logits not finite")
     require(int(cache.pos) == DECODE_STEPS, f"{cfg.name} decode: cache at "
             f"{int(cache.pos)}")
     require(not any(launches.values()),
@@ -1986,38 +2073,48 @@ def serve_granite(dev) -> dict:
     return row
 
 
-def decode_vs_prefill(dev) -> dict:
-    """granite-8b at full width in f32 with LLM_F32_LAYERS layers: DECODE_T
-    tokens decoded one by one against forward + logits_fn over them
-    through the kernel (tests/test_decode_consistency.py's check)."""
-    cfg = granite_8b.CONFIG.replace(dtype="float32", num_layers=LLM_F32_LAYERS)
+def decode_vs_prefill(dev, cfg=None, tokens: int = DECODE_T,
+                      tol: float = DECODE_TOL) -> dict:
+    """A model in f32 at full width (granite-8b with LLM_F32_LAYERS layers
+    unless ``cfg`` says otherwise): ``tokens`` tokens of 2 streams decoded
+    one by one against the forward + logits_fn over them through the
+    kernel (tests/test_decode_consistency.py's check), within ``tol`` of
+    max|logits|; one SIMT flash launch an attention layer, and no MoE pick
+    dropped on either path."""
+    cfg = cfg or granite_8b.CONFIG.replace(dtype="float32",
+                                           num_layers=LLM_F32_LAYERS)
     params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(1),
                       device=dev)
-    toks = torch.from_numpy(zipf_tokens(2, DECODE_T, cfg.vocab_size,
+    toks = torch.from_numpy(zipf_tokens(2, tokens, cfg.vocab_size,
                                         seed=1)).to(dev)
-    cache = zoo.init_cache(cfg, 2, DECODE_T, device=dev)
+    cache = zoo.init_cache(cfg, 2, tokens, device=dev)
     outs = []
-    for t in range(DECODE_T):
-        lg, cache = zoo.decode_fn(params, cfg, cache, toks[:, t:t + 1])
-        outs.append(lg[:, 0])
-    dec = torch.stack(outs, dim=1)
-    reset_counts()
-    hidden, _ = transformer.forward(params, cfg, toks)
-    ref_logits = transformer.logits_fn(params, cfg, hidden)
-    torch.cuda.synchronize()
+    with RouteRecorder() as rec:
+        for t in range(tokens):
+            lg, cache = zoo.decode_fn(params, cfg, cache, toks[:, t:t + 1])
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        reset_counts()
+        hidden, _ = zoo.forward(params, cfg, toks)
+        ref_logits = transformer.logits_fn(params, cfg, hidden)
+        torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["flash_attention"]
     rel = rel_diff(dec, ref_logits)
+    n_attn = attention_layers(cfg)
     row = {"phase": "llm_decode_vs_prefill", "arch": cfg.name,
-           "layers": LLM_F32_LAYERS, "dtype": "float32", "tokens": DECODE_T,
-           "rel": rel, "tol": DECODE_TOL, "flash_launches": launches,
-           "tc_launches": counts["flash_attention_tc"]}
+           "layers": cfg.num_layers, "dtype": "float32", "tokens": tokens,
+           "rel": rel, "tol": tol, "flash_launches": launches,
+           "tc_launches": counts["flash_attention_tc"],
+           "moe_dropped_max": max(rec.dropped(), default=0.0)}
     emit(row)
-    require(launches == LLM_F32_LAYERS and counts["flash_attention_tc"] == 0,
-            f"decode vs prefill: {counts}, want {LLM_F32_LAYERS} flash "
+    require(launches == n_attn and counts["flash_attention_tc"] == 0,
+            f"{cfg.name} decode vs prefill: {counts}, want {n_attn} flash "
             "launches, all on the f32 SIMT kernel")
-    require(rel["max"] <= DECODE_TOL, f"decode vs prefill (f32, full width): "
-            f"max diff {rel['max']} of max|logits| > {DECODE_TOL}")
+    require(row["moe_dropped_max"] == 0.0, f"{cfg.name} decode vs prefill: "
+            f"MoE dropped {row['moe_dropped_max']} of its picks")
+    require(rel["max"] <= tol, f"{cfg.name} decode vs prefill (f32, full "
+            f"width): max diff {rel['max']} of max|logits| > {tol}")
     return row
 
 
@@ -2179,6 +2276,315 @@ def llm_train(dev, granite=None, hubert=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase "llm_families": MoE, Mamba-2 and the hybrid at full width
+# ---------------------------------------------------------------------------
+class RouteRecorder:
+    """For the length of a ``with``, wraps ``moe.route`` and
+    ``moe.assign_slots``: records each MoE call's own expert indices (G, T,
+    k), the indices it used, its (E, C) and its keep mask (G, T*k), on the
+    device.  With ``pin`` (the recorder of an earlier run over the same
+    tokens) each call uses that run's indices for the same call, its gates
+    renormalised from its own probabilities at them."""
+
+    def __init__(self, pin: "RouteRecorder | None" = None):
+        self.pin = pin
+        self.own, self.used, self.caps, self.keep = [], [], [], []
+
+    def __enter__(self):
+        self._route, self._slots = moe.route, moe.assign_slots
+
+        def route(p, cfg, xg):
+            probs, gates, idx = self._route(p, cfg, xg)
+            self.own.append(idx)
+            if self.pin is not None:
+                idx = self.pin.used[len(self.used)]
+                g = torch.gather(probs, -1, idx)
+                gates = g / g.sum(dim=-1, keepdim=True)
+            self.used.append(idx)
+            return probs, gates, idx
+
+        def slots(expert_idx, num_experts, capacity):
+            slot, keep = self._slots(expert_idx, num_experts, capacity)
+            self.caps.append((num_experts, capacity))
+            self.keep.append(keep)
+            return slot, keep
+
+        moe.route, moe.assign_slots = route, slots
+        return self
+
+    def __exit__(self, *exc):
+        moe.route, moe.assign_slots = self._route, self._slots
+        return False
+
+    def dropped(self) -> list:
+        return [float((~k).float().mean()) for k in self.keep]
+
+    def own_choice(self, i: int):
+        """(sorted expert set (G, T, k), keep (G, T, k)) of call i's own
+        routing."""
+        idx = self.own[i]
+        keep = moe.assign_slots(idx, *self.caps[i])[1]
+        return idx.sort(dim=-1).values, keep.reshape(idx.shape)
+
+
+def route_flips(a: RouteRecorder, b: RouteRecorder) -> torch.Tensor:
+    """(B*S,) bool: the tokens whose own expert set or keep differs between
+    two runs over the same tokens in any MoE call."""
+    flips = None
+    for i in range(len(a.own)):
+        (ea, ka), (eb, kb) = a.own_choice(i), b.own_choice(i)
+        f = ((ea != eb) | (ka != kb)).any(dim=-1).reshape(-1)
+        flips = f if flips is None else flips | f
+    return flips
+
+
+def attention_layers(cfg) -> int:
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // 8
+    return cfg.num_layers
+
+
+@contextlib.contextmanager
+def flipped_mask():
+    """For the length of a ``with``, every attention layer's mask flipped
+    (causal <-> non-causal): a wiring fault of the mask."""
+    apply = attention.attn_apply
+    attention.attn_apply = (lambda p, cfg, x, causal=True, kernels="auto":
+                            apply(p, cfg, x, not causal, kernels))
+    try:
+        yield
+    finally:
+        attention.attn_apply = apply
+
+
+def with_rolled_heads(cfg, params, hd: int) -> dict:
+    """``params`` with wk and wv rolled by one head (reading the wrong KV
+    head): the hybrid's ma block, every other family's stacked layers."""
+    block = "ma" if cfg.family == "hybrid" else "layers"
+    attn = dict(params[block]["attn"])
+    for name in ("wk", "wv"):
+        attn[name] = torch.roll(attn[name], hd, dims=-1)
+    return {**params, block: {**params[block], "attn": attn}}
+
+
+def last_logits(cfg, params, toks, kernels: str, pin=None, n_out=None):
+    """(logits of the last n_out positions (B, n_out, V), the run's
+    RouteRecorder) of one forward."""
+    n_out = n_out or transformer.LOSS_CHUNK
+    with RouteRecorder(pin) as rec:
+        hidden, _ = zoo.forward(params, cfg, toks, kernels=kernels)
+        logits = transformer.logits_fn(params, cfg, hidden[:, -n_out:])
+    return logits, rec
+
+
+def family_twin(cfg, params, toks) -> dict:
+    """kernels="off" beside "auto" on the last LOSS_CHUNK positions of each
+    prompt, the off run's routing pinned to the auto run's (FAMILY_OFF_TOL
+    says why), position by position within its bound; the wiring controls
+    (pinned the same way) must fail it.  A run with its own routing is
+    reported beside it: its flipped positions, and the rest's difference.
+    -> the row's twin fields and the auto run's recorder."""
+    B, S = toks.shape
+    n_out = min(transformer.LOSS_CHUNK, S)
+    tol = FAMILY_OFF_TOL[cfg.name]
+    auto, rec = last_logits(cfg, params, toks, "auto")
+    off, pinned = last_logits(cfg, params, toks, "off", pin=rec)
+    free, own = last_logits(cfg, params, toks, "off")
+    out = {"off_vs_auto_rel": rel_diff(off, auto), "tol": tol}
+    if rec.own:
+        last = torch.zeros((B, S), dtype=torch.bool, device=toks.device)
+        last[:, -n_out:] = True
+        flips = route_flips(rec, own).reshape(B, S)
+        kept = ~flips[last].reshape(B, n_out)
+        out["own_routing"] = {
+            "flipped_share": float(flips.float().mean()),
+            "flipped_in_compared": int((~kept).sum()),
+            "rel_unflipped": rel_diff(free[kept], auto[kept]) if kept.any()
+            else None}
+        out["pinned_own_choice_flipped_share"] = float(
+            route_flips(rec, pinned).float().mean())
+    del free, own, pinned
+    if attention_layers(cfg):
+        hd = cfg.resolved_head_dim
+        with flipped_mask():
+            mask, _ = last_logits(cfg, params, toks, "off", pin=rec)
+        rolled, _ = last_logits(cfg, with_rolled_heads(cfg, params, hd), toks,
+                                "off", pin=rec)
+        out["wrong_wiring_rel"] = {"mask": rel_diff(mask, auto),
+                                   "head_map": rel_diff(rolled, auto)}
+        del mask, rolled
+    return out, rec
+
+
+def serve_family(dev, name: str) -> dict:
+    """One family model at full width in bf16 (depth as FAMILIES says):
+    PREFILL_CALLS prefills (one flash launch an attention layer, each on the
+    tensor-core kernel, no other kernel), the off-beside-auto twin and its
+    controls, greedy decode of DECODE_B streams for DECODE_STEPS steps (no
+    kernel), with each MoE layer's dropped share in prefill and decode."""
+    mod, layers = FAMILIES[name]
+    cfg = mod.CONFIG.replace(num_layers=layers)
+    params, init_s = timed_s(lambda: zoo.init(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_attn = attention_layers(cfg)
+    row = {"phase": "llm_family", "arch": cfg.name, "layers": layers,
+           "reduced": ({} if layers == mod.CONFIG.num_layers else
+                       {"num_layers": f"{mod.CONFIG.num_layers} -> {layers}"}),
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "param_count": cfg.param_count(), "init_s": init_s,
+           "attention_layers": n_attn, "batch": PREFILL_B, "seq": PREFILL_S}
+    toks = torch.from_numpy(zipf_tokens(PREFILL_B, PREFILL_S, cfg.vocab_size,
+                                        seed=0)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    logits, seconds, flash, tc = timed_prefills(cfg, params, {"tokens": toks})
+    require(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
+            f"{cfg.name} prefill: logits {tuple(logits.shape)}")
+    reset_counts()
+    _, off_s = timed_s(lambda: make_prefill_step(cfg, kernels="off")(
+        params, {"tokens": toks}))
+    require(not any(read_counts().values()),
+            f"{cfg.name} kernels='off' prefill launched {read_counts()}")
+    twin, rec = family_twin(cfg, params, toks)
+    row.update({"prefill_s": seconds,
+                "prefill_tokens_per_s": PREFILL_B * PREFILL_S / seconds[-1],
+                "flash_launches": flash, "tc_launches": tc,
+                "off_prefill_s": off_s, **twin,
+                "prefill_dropped": rec.dropped()})
+    del rec
+
+    with RouteRecorder() as rec:
+        decode_s, cache, tok, finite = greedy_decode(cfg, params, dev)
+    launches = read_counts()
+    n_moe = len(row["prefill_dropped"])
+    drops = rec.dropped()
+    row.update({"decode_batch": DECODE_B, "decode_steps": DECODE_STEPS,
+                "decode_s": decode_s,
+                "decode_ms_per_step": 1e3 * decode_s / DECODE_STEPS,
+                "decode_tokens_per_s": DECODE_B * DECODE_STEPS / decode_s,
+                "decode_dropped_mean": [statistics.fmean(drops[i::n_moe])
+                                        for i in range(n_moe)],
+                "cache_pos": int(cache.pos), "sample": tok[:, 0].tolist(),
+                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    emit(row)
+    require(finite, f"{cfg.name} decode: logits not finite")
+    require(int(cache.pos) == DECODE_STEPS, f"{cfg.name} decode: cache at "
+            f"{int(cache.pos)}")
+    require(not any(launches.values()), f"{cfg.name} decode launched "
+            f"{launches}")
+    require(len(drops) == n_moe * DECODE_STEPS, f"{cfg.name} decode: "
+            f"{len(drops)} MoE calls, want {n_moe} a step")
+    tol, rel = row["tol"], row["off_vs_auto_rel"]
+    require(rel["max"] <= tol["max"] and rel["rms"] <= tol["rms"],
+            f"{cfg.name}: kernels='off' vs 'auto' logits differ by {rel} of "
+            f"their scale, bound {tol}")
+    for fault, r in row.get("wrong_wiring_rel", {}).items():
+        require(r["max"] > tol["max"] or r["rms"] > tol["rms"],
+                f"{cfg.name}: a wrong {fault} moves the logits by only {r}, "
+                f"inside the off-beside-auto bound {tol}")
+    print(f"{cfg.name} ({layers} layers): prefill "
+          f"{row['prefill_tokens_per_s']:.0f} tokens/s, decode "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s, off vs auto {rel}, "
+          f"peak {row['peak_memory_GB']:.1f} GB", flush=True)
+    return row
+
+
+def moe_apply_plain(p, cfg, x):
+    """The MoE layer's function, computed independently of ``moe``'s
+    dispatch: per group and expert, the first C picks of that expert in
+    token-major order are kept, their tokens gathered by index, run through
+    the expert's SwiGLU and index_add-ed back weighted by their gates.
+    -> (out (B, S, d), keep (G, T*k), dropped share)."""
+    B, S, d = x.shape
+    T = moe.group_size(B * S, cfg.moe_group)
+    G, E, k = B * S // T, cfg.num_experts, cfg.top_k
+    C = moe._capacity(T, k, E, cfg.capacity_factor)
+    xt = x.reshape(G, T, d)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = (gates / gates.sum(dim=-1, keepdim=True)).reshape(G, T * k)
+    out = torch.zeros((G * T, d), dtype=torch.float32, device=x.device)
+    keep = torch.zeros((G, T * k), dtype=torch.bool, device=x.device)
+    for g in range(G):
+        picks_of = idx[g].reshape(-1)                   # token-major picks
+        for e in range(E):
+            picks = torch.nonzero(picks_of == e)[:C, 0]
+            keep[g, picks] = True
+            tok = picks // k
+            xe = xt[g, tok]
+            h = (xe @ p["wi"][e]) * torch.nn.functional.silu(xe @ p["wg"][e])
+            out.index_add_(0, g * T + tok,
+                           (h @ p["wo"][e]).float() * gates[g, picks, None])
+    return out.to(x.dtype).reshape(B, S, d), keep, (~keep).float().mean()
+
+
+def check_moe_dispatch(dev, mod) -> dict:
+    """One MoE layer of ``mod``'s config at full width in f32 over MOE_B x
+    MOE_S tokens: ``moe.moe_apply`` against ``moe_apply_plain`` (keep mask
+    and dropped share equal, the output within MOE_PLAIN_TOL of its
+    scale)."""
+    cfg = mod.CONFIG.replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = moe.moe_init(gen, cfg)
+    table = torch.randn((4096, cfg.d_model), generator=gen, device=dev)
+    ids = torch.from_numpy(zipf_tokens(MOE_B, MOE_S, 4096, seed=5)).to(dev)
+    x = table[ids.long()]
+    with RouteRecorder() as rec:
+        (out, (aux, dropped)), moe_s = timed_s(lambda: moe.moe_apply(p, cfg, x))
+    (want, keep, want_dropped), plain_s = timed_s(
+        lambda: moe_apply_plain(p, cfg, x))
+    rel = float((out - want).abs().max() / want.abs().max())
+    row = {"phase": "llm_moe_dispatch", "arch": cfg.name, "dtype": "float32",
+           "tokens": MOE_B * MOE_S, "groups": rec.keep[0].shape[0],
+           "capacity": rec.caps[0][1], "dropped": float(dropped),
+           "plain_dropped": float(want_dropped), "aux": float(aux),
+           "rel_err": rel, "tol": MOE_PLAIN_TOL, "moe_s": moe_s,
+           "plain_s": plain_s}
+    emit(row)
+    require(bool(torch.equal(rec.keep[0], keep)), f"{cfg.name} MoE: the keep "
+            "mask differs from the plain dispatch's")
+    require(float(dropped) == float(want_dropped), f"{cfg.name} MoE: dropped "
+            f"{float(dropped)} against the plain {float(want_dropped)}")
+    require(rel <= MOE_PLAIN_TOL, f"{cfg.name} MoE: output {rel} of its scale "
+            f"off the plain dispatch > {MOE_PLAIN_TOL}")
+    return row
+
+
+def llm_families(dev) -> dict:
+    """The phase: each of FAMILIES served (serve_family), decode against
+    prefill in f32 for FAMILY_F32, the MoE dispatch against the plain one
+    for qwen3-moe and dbrx, then mamba2-370m trained at full width and depth
+    (train_model: TRAIN_STEPS fim_lbfgs steps, one Gram launch each, and
+    its kernels="off" twin); each config from FAMILIES (a CPU rehearsal
+    swaps in smaller ones)."""
+    out = {"serve": {}, "decode_vs_prefill": {}, "moe_dispatch": {}}
+    for name in FAMILIES:
+        out["serve"][name] = serve_family(dev, name)
+        free_cuda()
+    for name, (layers, tokens, tol) in FAMILY_F32.items():
+        mod = FAMILIES[name][0]
+        cfg = mod.CONFIG.replace(dtype="float32", num_layers=layers)
+        if cfg.num_experts:
+            cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+        out["decode_vs_prefill"][name] = decode_vs_prefill(dev, cfg, tokens, tol)
+        free_cuda()
+    for name in ("qwen3-moe-235b-a22b", "dbrx-132b"):
+        out["moe_dispatch"][name] = check_moe_dispatch(dev, FAMILIES[name][0])
+        free_cuda()
+    cfg = FAMILIES["mamba2-370m"][0].CONFIG
+    emit({"phase": "llm_train_config", "arch": cfg.name,
+          "layers": cfg.num_layers,
+          "params": sum(math.prod(s) for s in param_shapes(cfg, dev)),
+          "lbfgs_m": cfg.lbfgs_m, "history": cfg.lbfgs_dtype, "reduced": {}})
+    toks = torch.from_numpy(zipf_tokens(TRAIN_B, TRAIN_S, cfg.vocab_size,
+                                        seed=6)).to(dev)
+    out["train"] = train_model(cfg, {"tokens": toks}, TRAIN_MICRO, TRAIN_STEPS,
+                               dev, baselines=False)
+    return out
+
+
 def param_shapes(cfg, dev) -> list[tuple]:
     """The shapes of ``cfg``'s parameter leaves, in tree order (an init on
     ``dev``, freed)."""
@@ -2236,6 +2642,12 @@ def main() -> int:
     gram_rows.append(check_gram_history_bf16(
         dev, granite_train.lbfgs_m, param_shapes(granite_train, dev)))
     free_cuda()
+    # and mamba2-370m's at its full depth (phase llm_families' train step,
+    # 419.2 M columns), the row the kernels line reports as "llm_families"
+    mamba = mamba2_370m.CONFIG
+    gram_mamba = check_gram_history_bf16(dev, mamba.lbfgs_m,
+                                         param_shapes(mamba, dev))
+    free_cuda()
     # int8: fim_lbfgs's (g, Γ) payload (16 leaves) in one call, the row
     # the kernels line reports; then each leaf alone, for comparison
     int8_payload = check_int8_payload(dev, leaf_shapes + leaf_shapes)
@@ -2257,8 +2669,9 @@ def main() -> int:
     # flash attention: granite-8b's prefill first (the row the kernels line
     # reports for the bf16 tensor-core kernel), then decode-vs-prefill's f32
     # call (its row for the f32 SIMT kernel), hubert-xlarge's in bf16 and
-    # f32, a window at full width, ragged S, and tests/test_kernels.py's
-    # cases in f32 and bf16
+    # f32, a window at full width, ragged S, tests/test_kernels.py's cases
+    # in f32 and bf16, and the prefills of qwen3-moe (64 q heads on 4 KV
+    # heads) and dbrx (48 on 8)
     bf16, f32 = torch.bfloat16, torch.float32
     flash_rows = [check_flash(dev, *case) for case in (
         (2, 32, 8, 4096, 128, True, 0, bf16),
@@ -2270,7 +2683,9 @@ def main() -> int:
         (1, 32, 8, 1000, 128, False, 0, f32),
         (1, 4, 2, 256, 64, True, 0, f32), (2, 8, 8, 128, 32, True, 0, f32),
         (1, 8, 1, 256, 64, True, 0, f32), (1, 4, 4, 256, 64, True, 96, f32),
-        (1, 2, 1, 128, 64, False, 0, f32), (1, 4, 2, 128, 64, True, 0, bf16))]
+        (1, 2, 1, 128, 64, False, 0, f32), (1, 4, 2, 128, 64, True, 0, bf16),
+        (2, 64, 4, 4096, 128, True, 0, bf16),
+        (2, 48, 8, 4096, 128, True, 0, bf16))]
     free_cuda()
 
     # phase 3: the main paths, with launch counts from these runs only
@@ -2332,6 +2747,20 @@ def main() -> int:
     trained = llm_train(dev)
     emit({"phase": "llm_train_seconds", "seconds": time.perf_counter() - t0})
     train_gram = sum(r["gram_launches"] for r in trained.values())
+    free_cuda()
+
+    # phase "llm_families": MoE, Mamba-2 and the hybrid at full width, each
+    # path from fresh counts
+    t0 = time.perf_counter()
+    families = llm_families(dev)
+    emit({"phase": "llm_families_seconds",
+          "seconds": time.perf_counter() - t0})
+    for row in families["serve"].values():
+        total["flash_attention"] += sum(row["flash_launches"])
+        total["flash_attention_tc"] += sum(row["tc_launches"])
+    for row in families["decode_vs_prefill"].values():
+        total["flash_attention"] += row["flash_launches"]
+    train_gram += families["train"]["gram_launches"]
     total["vlbfgs_gram"] += train_gram
     free_cuda()
 
@@ -2354,13 +2783,15 @@ def main() -> int:
          "launches_are": "one a client grad_fim call, all leaves; on the "
                          "cohort path one a 64 (slot, leaf) matrices"},
         {**entry("vlbfgs_gram", "src/repro_torch/csrc/vlbfgs.cu",
-                 "src/repro/kernels/vlbfgs.py:40", gram_rows,
+                 "src/repro/kernels/vlbfgs.py:40", [*gram_rows, gram_mamba],
                  total["vlbfgs_gram"]),
          "launches_are": "one a server step, read in place from the "
                          "history; one a fim_lbfgs LLM train step",
-         "llm_train": {k: gram_rows[-1][k] for k in (
+         **{phase: {k: row[k] for k in (
              "shape", "dtype", "kernel_ms", "kernel_call_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "library_is")},
+             "bound_ms", "bound_by", "library_ms", "library_is")}
+            for phase, row in (("llm_train", gram_rows[-1]),
+                               ("llm_families", gram_mamba))},
          "llm_train_launches": train_gram},
         {**entry("int8_roundtrip", "src/repro_torch/csrc/codec_ops.cu",
                  "src/repro/kernels/codec_ops.py:69",

@@ -1,10 +1,12 @@
 """Serve a model on the PyTorch/CUDA port: a prefill of Zipf prompts through
 the flash-attention kernel, then batched greedy decode through the KV
-cache; the counterpart of ``examples/serve.py``.
+cache (and the SSM state of Mamba-2 and Jamba); the counterpart of
+``examples/serve.py``.
 
     PYTHONPATH=src python examples/torch_serve.py                  # CUDA
     PYTHONPATH=src python examples/torch_serve.py --device cpu
     PYTHONPATH=src python examples/torch_serve.py --arch qwen3-32b --tokens 64
+    PYTHONPATH=src python examples/torch_serve.py --device cpu --arch jamba-v0.1-52b
     PYTHONPATH=src python examples/torch_serve.py --full-width     # granite-8b, ~17 GB
 """
 import argparse
@@ -20,7 +22,10 @@ from repro_torch.models import model as zoo
 
 ARCH_MODULES = {"granite-8b": "granite_8b", "granite-20b": "granite_20b",
                 "phi4-mini-3.8b": "phi4_mini", "qwen3-32b": "qwen3_32b",
-                "chameleon-34b": "chameleon_34b"}
+                "chameleon-34b": "chameleon_34b",
+                "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+                "dbrx-132b": "dbrx_132b", "jamba-v0.1-52b": "jamba_52b",
+                "mamba2-370m": "mamba2_370m"}
 
 
 def _sync(device: torch.device) -> None:

@@ -1,6 +1,6 @@
 """Architecture + run configuration (port of ``repro.configs.base``).
 
-Each architecture the port has reached lives in its own
+Each architecture lives in its own
 ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the exact published
 shape, cited) and ``smoke_config()`` (a reduced same-family variant for
 CPU tests); ``get(name)`` resolves it.  ``FedConfig`` holds the federated
@@ -177,11 +177,6 @@ class FedConfig:
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
-# the reference's architectures whose families the port has not reached:
-# MoE (item 7 of ROADMAP section 1), Mamba-2 and the hybrid (item 8)
-NOT_PORTED = ("dbrx-132b", "jamba-v0.1-52b", "mamba2-370m",
-              "qwen3-moe-235b-a22b")
-
 
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
@@ -191,9 +186,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         _load_all()  # idempotent; a direct config import may have run first
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (repro_torch has {names()})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -207,6 +199,6 @@ def names() -> list[str]:
 def _load_all() -> None:
     # Import for registration side effects.
     from repro_torch.configs import (  # noqa: F401
-        chameleon_34b, granite_8b, granite_20b, hubert_xlarge, phi4_mini,
-        qwen3_32b,
+        chameleon_34b, dbrx_132b, granite_8b, granite_20b, hubert_xlarge,
+        jamba_52b, mamba2_370m, phi4_mini, qwen3_32b, qwen3_moe_235b,
     )

@@ -1,5 +1,5 @@
-"""Unified model API over the architecture families the port has reached
-(port of ``repro.models.model``):
+"""Unified model API over every architecture family (port of
+``repro.models.model``):
 
     init(cfg, generator, device)    -> params
     loss_fn(params, cfg, batch)     -> (scalar, metrics)      [train]
@@ -8,25 +8,22 @@
     decode_fn(params, cfg, c, t)    -> (logits, cache)
     synth_batch(cfg, shape, gen)    -> a random batch of ``shape``
 
-The dense, VLM and audio-encoder families run; MoE, Mamba-2 and the hybrid
-raise ``NotImplementedError`` naming their slice (ROADMAP section 1, items
-7 and 8).  The train step over ``loss_fn`` is ``launch/train.py``.
+The hybrid (Jamba) family runs ``models/hybrid.py``; every other family
+(dense, MoE, Mamba-2, the VLM and the audio encoder) runs
+``models/transformer.py``.  The train step over ``loss_fn`` is
+``launch/train.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.utils.device import resolve_device
 
 
-def _check(cfg: ArchConfig) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid (Jamba) family is not ported yet "
-            "(ROADMAP section 1, item 8: models/hybrid.py)")
-    transformer.check_family(cfg)
+def is_hybrid(cfg: ArchConfig) -> bool:
+    return cfg.family == "hybrid"
 
 
 def init(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -34,29 +31,37 @@ def init(cfg: ArchConfig, generator: torch.Generator | None = None,
     """Parameters drawn on ``device`` from ``generator`` (a generator on
     that device; seed 0 when None).  Runs on the card unless the caller
     asks for the CPU, and raises without CUDA."""
-    _check(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if generator.device.type != device.type:
         raise ValueError(f"init: generator on {generator.device}, params "
                          f"asked for on {device}")
-    return transformer.init_params(cfg, generator)
+    mod = hybrid if is_hybrid(cfg) else transformer
+    return mod.init_params(cfg, generator)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
     """(loss, {"ce", "aux"}): ``transformer.encoder_loss`` for an encoder,
-    else the next-token ``lm_loss``; attention runs the plain path."""
-    _check(cfg)
+    else the next-token ``lm_loss`` (the hybrid's for Jamba), the MoE aux
+    loss weighted by ``router_aux_coef``; attention runs the plain path."""
+    if is_hybrid(cfg):
+        return hybrid.lm_loss(params, cfg, batch)
     return transformer.loss_fn(params, cfg, batch)
+
+
+def forward(params, cfg: ArchConfig, inputs, kernels: str = "auto"):
+    """(hidden (B, S, d), aux) of the family's stack; ``kernels`` is the
+    attention's kernel mode."""
+    fwd = hybrid.forward if is_hybrid(cfg) else transformer.forward
+    return fwd(params, cfg, inputs, kernels=kernels)
 
 
 def prefill_fn(params, cfg: ArchConfig, batch, kernels: str = "auto"):
     """Full-sequence forward returning last-position logits (prefill), or
     the last ``LOSS_CHUNK`` frames' logits for an encoder."""
-    _check(cfg)
     inputs = batch.get("tokens", batch.get("features"))
-    hidden, _ = transformer.forward(params, cfg, inputs, kernels=kernels)
+    hidden, _ = forward(params, cfg, inputs, kernels=kernels)
     if cfg.is_encoder:  # encode: per-frame logits
         return transformer.logits_fn(params, cfg,
                                      hidden[:, -transformer.LOSS_CHUNK:])
@@ -64,13 +69,13 @@ def prefill_fn(params, cfg: ArchConfig, batch, kernels: str = "auto"):
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, device="cuda"):
-    _check(cfg)
-    return transformer.init_cache(cfg, batch, context, resolve_device(device))
+    mod = hybrid if is_hybrid(cfg) else transformer
+    return mod.init_cache(cfg, batch, context, resolve_device(device))
 
 
 def decode_fn(params, cfg: ArchConfig, cache, token):
-    _check(cfg)
-    return transformer.decode_step(params, cfg, cache, token)
+    mod = hybrid if is_hybrid(cfg) else transformer
+    return mod.decode_step(params, cfg, cache, token)
 
 
 def synth_batch(cfg: ArchConfig, shape: ShapeConfig,

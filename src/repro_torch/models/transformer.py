@@ -1,13 +1,13 @@
-"""Decoder / encoder transformer stacks: the dense, audio-encoder and VLM
-families (port of ``repro.models.transformer``: forward, the losses,
-decode).
+"""Decoder / encoder stacks: the dense, MoE, pure-SSM (Mamba-2),
+audio-encoder and VLM families (port of ``repro.models.transformer``:
+forward, the losses, decode).
 
 Layers are stored *stacked* (leading ``num_layers`` dim, the reference's
 layout) and run as a Python loop over the stack, which takes the place of
 the reference's ``lax.scan``; under autograd with ``cfg.remat`` each layer
 is recomputed in the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of the scanned body).  MoE and Mamba-2 layers are later
-slices of the port.
+``jax.checkpoint`` of the scanned body).  The hybrid (Jamba) family lives
+in ``models/hybrid.py``.
 """
 from __future__ import annotations
 
@@ -17,29 +17,25 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, rms_norm)
 
 LOSS_CHUNK = 512  # sequence chunk for the CE loss (bounds logits memory)
 
 
-def check_family(cfg) -> None:
-    """Raise for the layer kinds the port has not reached."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 layers are not ported yet (ROADMAP "
-            "section 1, item 8: models/mamba2.py)")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP section 1, "
-            "item 7: models/moe.py)")
-
-
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree."""
+    """Layer ``i`` of a stacked parameter tree or cache (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # a NamedTuple cache
+        return type(tree)(*(_layer(t, i) for t in tree))
     return tree[i]
+
+
+def stack_cache(cache: tuple, lead: tuple) -> tuple:
+    """A NamedTuple cache of one layer repeated over ``lead`` dims (copies)."""
+    return type(cache)(*(t.expand(lead + t.shape).clone() for t in cache))
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +44,6 @@ def _layer(tree, i: int):
 def init_params(cfg, generator: torch.Generator) -> dict:
     """-> params dict on the generator's device, in the reference's
     structure and layout (its sharding axes wait for the launch slice)."""
-    check_family(cfg)
     L, d = cfg.num_layers, cfg.d_model
     dtype = cfg.activation_dtype
     device = generator.device
@@ -63,9 +58,14 @@ def init_params(cfg, generator: torch.Generator) -> dict:
         params["embed"] = dense_init(generator, (d, d), dtype)
     else:
         params["embed"] = embed_init(generator, (cfg.vocab_size, d), dtype)
-    layers = {"attn": attn.attn_init(generator, cfg, stack=L), "ln1": ones(L, d)}
+    if cfg.family == "ssm":
+        layers = {"mixer": mamba2.mamba_init(generator, cfg, stack=L)}
+    else:
+        layers = {"attn": attn.attn_init(generator, cfg, stack=L)}
+    layers["ln1"] = ones(L, d)
     if cfg.d_ff:
-        layers["ffn"] = mlp_init(generator, d, cfg.d_ff, dtype, stack=L)
+        layers["ffn"] = (moe.moe_init(generator, cfg, stack=L) if cfg.num_experts
+                         else mlp_init(generator, d, cfg.d_ff, dtype, stack=L))
         layers["ln2"] = ones(L, d)
     params["layers"] = layers
     params["final_ln"] = ones(d)
@@ -83,34 +83,42 @@ def embed_inputs(params, cfg, inputs):
 
 
 def _layer_body(lp, cfg, x, causal: bool, kernels: str):
-    h = x + attn.attn_apply(lp["attn"], cfg, rms_norm(x, lp["ln1"]), causal,
-                            kernels)
+    """-> (hidden, the layer's MoE aux loss, 0 without experts)."""
+    z = rms_norm(x, lp["ln1"])
+    h = x + (mamba2.mamba_apply(lp["mixer"], cfg, z) if cfg.family == "ssm"
+             else attn.attn_apply(lp["attn"], cfg, z, causal, kernels))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff:
-        h = h + mlp_apply(lp["ffn"], rms_norm(h, lp["ln2"]))
-    return h
+        z = rms_norm(h, lp["ln2"])
+        if cfg.num_experts:
+            out, (aux, _) = moe.moe_apply(lp["ffn"], cfg, z)
+        else:
+            out = mlp_apply(lp["ffn"], z)
+        h = h + out
+    return h, aux
 
 
 def forward(params, cfg, inputs, kernels: str = "auto"):
     """inputs: (B,S) int tokens, or (B,S,d) embeddings for audio, at
-    positions 0..S-1.  Returns (hidden (B,S,d), total_aux_loss), the aux
-    loss being 0 without MoE.  ``kernels`` is the attention's kernel mode
-    (``kernels.ops.resolve``; attention that a gradient flows through runs
-    the plain path whatever it says).  With ``cfg.remat`` and grad mode on,
-    each layer keeps only its input for the backward and is run again
-    there."""
-    check_family(cfg)
+    positions 0..S-1.  Returns (hidden (B,S,d), total_aux_loss), the
+    layers' MoE aux losses summed in f32 (0 without MoE).  ``kernels`` is
+    the attention's kernel mode (``kernels.ops.resolve``; attention that a
+    gradient flows through runs the plain path whatever it says).  With
+    ``cfg.remat`` and grad mode on, each layer keeps only its input for
+    the backward and is run again there."""
     x = embed_inputs(params, cfg, inputs)
     causal = not cfg.is_encoder
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(params["layers"]["ln1"].shape[0]):
         lp = _layer(params["layers"], i)
         if remat:
-            x = checkpoint(_layer_body, lp, cfg, x, causal, kernels,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_body, lp, cfg, x, causal, kernels,
+                              use_reentrant=False)
         else:
-            x = _layer_body(lp, cfg, x, causal, kernels)
-    x = rms_norm(x, params["final_ln"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _layer_body(lp, cfg, x, causal, kernels)
+        aux = aux + a
+    return rms_norm(x, params["final_ln"]), aux
 
 
 def logits_fn(params, cfg, hidden):
@@ -177,34 +185,42 @@ def loss_fn(params, cfg, batch):
 # decode (serve_step)
 # ---------------------------------------------------------------------------
 class DecodeCache(NamedTuple):
-    layer_cache: attn.KVCache  # stacked (L, ...) KVCache
+    layer_cache: tuple         # stacked (L, ...) KVCache or MambaState
     pos: torch.Tensor          # () int32 — absolute position of the next token
 
 
 def init_cache(cfg, batch: int, context: int, device) -> DecodeCache:
-    check_family(cfg)
-    window = (min(cfg.window, context) if cfg.attn_variant == "sliding_window"
-              else context)
-    kc = attn.cache_init(cfg, batch, window, cfg.activation_dtype, device)
-    stacked = attn.KVCache(*(t.expand((cfg.num_layers,) + t.shape).clone()
-                             for t in kc))
-    return DecodeCache(stacked, torch.zeros((), dtype=torch.int32, device=device))
+    if cfg.family == "ssm":
+        layer = mamba2.state_init(cfg, batch, device)
+    else:
+        window = (min(cfg.window, context)
+                  if cfg.attn_variant == "sliding_window" else context)
+        layer = attn.cache_init(cfg, batch, window, cfg.activation_dtype, device)
+    return DecodeCache(stack_cache(layer, (cfg.num_layers,)),
+                       torch.zeros((), dtype=torch.int32, device=device))
 
 
 def decode_step(params, cfg, cache: DecodeCache, token):
     """token: (B,1) int (or (B,1,d) audio embeds) -> (logits (B,1,V), cache).
 
-    Writes the new keys and values into ``cache``'s tensors in place (see
-    ``attention.attn_decode``); the returned cache shares them.  The
-    position is tracked once, at the top level."""
+    Writes the new keys and values (or SSM states) into ``cache``'s tensors
+    in place (see ``attention.attn_decode``, ``mamba2.decode_in_place``);
+    the returned cache shares them.  The position is tracked once, at the
+    top level.  An MoE layer dispatches the B tokens as one group, so it
+    drops picks past its capacity as the reference's decode does."""
     x = embed_inputs(params, cfg, token)
     layer_cache = cache.layer_cache
     for i in range(params["layers"]["ln1"].shape[0]):
-        lp = _layer(params["layers"], i)
-        lc = attn.KVCache(k=layer_cache.k[i], v=layer_cache.v[i], pos=cache.pos)
-        out, _ = attn.attn_decode(lp["attn"], cfg, rms_norm(x, lp["ln1"]), lc)
-        x = x + out
+        lp, lc = _layer(params["layers"], i), _layer(layer_cache, i)
+        z = rms_norm(x, lp["ln1"])
+        if cfg.family == "ssm":
+            x = x + mamba2.decode_in_place(lp["mixer"], cfg, z, lc)
+        else:
+            x = x + attn.attn_decode(lp["attn"], cfg, z, lc._replace(
+                pos=cache.pos))[0]
         if cfg.d_ff:
-            x = x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"]))
+            z = rms_norm(x, lp["ln2"])
+            x = x + (moe.moe_apply(lp["ffn"], cfg, z)[0] if cfg.num_experts
+                     else mlp_apply(lp["ffn"], z))
     h = rms_norm(x, params["final_ln"])
     return logits_fn(params, cfg, h), DecodeCache(layer_cache, cache.pos + 1)

@@ -1,6 +1,7 @@
 """Each hand-written CUDA kernel against its plain PyTorch version, on the
-card, plus the cohort path's Γ launches and the fleet engine's float64
-device backend against its numpy backend.  Marked ``cuda``: on a host without a CUDA device every test skips
+card, plus the cohort path's Γ launches, the fleet engine's float64
+device backend against its numpy backend, and the MoE layer's dispatch
+against chip_smoke.py's plain one.  Marked ``cuda``: on a host without a CUDA device every test skips
 with the reason.  This file imports neither JAX nor the reference, so it
 runs on a GPU host that has only PyTorch:
 
@@ -624,7 +625,8 @@ def test_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # then hubert's hd 80 (MHA, non-causal), granite's hd 128 (GQA 4), a window
 # at hd 128, and ragged S (no multiple of the 64-row tile), down to S = 1;
 # then the edges of the bf16 kernel's 128-row and 128-key tiles at each
-# head dim, and a window that is no multiple of its tile
+# head dim, a window that is no multiple of its tile, and the head maps of
+# qwen3-moe (64 q heads on 4 KV heads) and dbrx (48 on 8)
 FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
                (1, 8, 1, 256, 64, True, 0), (1, 4, 4, 256, 64, True, 96),
                (1, 2, 1, 128, 64, False, 0),
@@ -635,7 +637,8 @@ FLASH_CASES = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 32, True, 0),
                (1, 2, 2, 300, 64, False, 64), (1, 2, 1, 1, 64, True, 0),
                (1, 4, 2, 127, 64, True, 0), (1, 4, 2, 128, 128, False, 0),
                (1, 4, 2, 129, 80, True, 0), (1, 2, 1, 255, 128, True, 0),
-               (1, 2, 2, 257, 32, False, 0), (1, 4, 1, 1000, 128, True, 100)]
+               (1, 2, 2, 257, 32, False, 0), (1, 4, 1, 1000, 128, True, 100),
+               (1, 64, 4, 512, 128, True, 0), (1, 48, 8, 512, 128, True, 0)]
 FLASH_TOLS = [("float32", (2e-5, 2e-5)), ("bfloat16", (2.0 ** -7, 1e-5))]
 
 
@@ -691,6 +694,37 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
     got = flash_attention.flash_attention(qv, kv, vv, causal=True)
     assert got.transpose(1, 2).is_contiguous()
     assert torch.equal(got, flash_attention.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "dbrx_132b"])
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_apply_matches_the_plain_dispatch(cuda, arch, cf):
+    """models.moe.moe_apply on the card (the index_put scatter into the
+    capacity buffer, the batched SwiGLU, the gather) against
+    chip_smoke.moe_apply_plain (per expert: gather by index, SwiGLU,
+    index_add by gate) at the smoke config's width in f32 over Zipf-picked
+    rows: the keep mask and the dropped share equal, the output within
+    1e-5 of its scale (the same products, summed by other shapes)."""
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import RouteRecorder, moe_apply_plain
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.models import moe
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").smoke_config()
+    cfg = cfg.replace(capacity_factor=cf)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = moe.moe_init(gen, cfg)
+    table = torch.randn((64, cfg.d_model), generator=gen, device=cuda)
+    x = table[torch.from_numpy(zipf_tokens(2, 256, 64, seed=3)).to(cuda).long()]
+    with RouteRecorder() as rec:
+        out, (_, dropped) = moe.moe_apply(p, cfg, x)
+    want, keep, want_dropped = moe_apply_plain(p, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.equal(rec.keep[0], keep) and not bool(keep.all())
+    assert float(dropped) == float(want_dropped)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(cuda):

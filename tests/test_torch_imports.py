@@ -35,6 +35,12 @@ EDGE_MODULES = ["repro_torch.edge", "repro_torch.edge.allocation",
                 "repro_torch.edge.scenario.faults", "repro_torch.obs",
                 "repro_torch.obs.export", "repro_torch.obs.metrics",
                 "repro_torch.obs.trace"]
+# modules of the MoE, Mamba-2 and hybrid slice
+FAMILY_MODULES = ["repro_torch.configs.qwen3_moe_235b",
+                  "repro_torch.configs.dbrx_132b",
+                  "repro_torch.configs.mamba2_370m",
+                  "repro_torch.configs.jamba_52b", "repro_torch.models.moe",
+                  "repro_torch.models.mamba2", "repro_torch.models.hybrid"]
 # modules of the checkpoint, cohort-simulator and fleet-engine slice
 FLEET_MODULES = ["repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
                  "repro_torch.checkpoint.run_state", "repro_torch.fed.simulator",
@@ -80,10 +86,10 @@ def test_every_module_imports_with_jax_blocked():
         "leaked = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"
-        f"missing = set({LLM_MODULES + EDGE_MODULES + FLEET_MODULES!r}) "
+        f"missing = set({LLM_MODULES + EDGE_MODULES + FLEET_MODULES + FAMILY_MODULES!r}) "
         "- set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 75, names\n"
+        "assert len(names) >= 82, names\n"
         "print(len(names))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -109,6 +115,15 @@ TRAIN_NAMES = {
     "repro_torch.core.lbfgs": ["push_"],
     "repro_torch.core.fim": ["update_"],
     "repro_torch.kernels.ref": ["vlbfgs_gram_leaves_ref"],
+    "repro_torch.models.moe": ["moe_init", "_capacity", "moe_apply", "route",
+                               "assign_slots", "dispatch", "expert_ffn",
+                               "combine"],
+    "repro_torch.models.mamba2": ["mamba_init", "_split_proj", "_causal_conv",
+                                  "MambaState", "state_init", "mamba_apply",
+                                  "mamba_decode"],
+    "repro_torch.models.hybrid": ["init_params", "_mm_block", "_ma_block",
+                                  "forward", "lm_loss", "HybridCache",
+                                  "init_cache", "decode_step"],
 }
 
 

@@ -1,8 +1,9 @@
 """The port's LLM serving slice against the reference on the CPU: the arch
 configs, Zipf tokens, the layers, the attention (chunked prefill, the
-ring-buffer decode), the transformer forward, prefill and decode of every
-smoke config the port has reached, the port's own decode against its own
-prefill, the init's structure and its refusals.
+ring-buffer decode), the transformer forward, prefill and decode of the
+dense, VLM and audio smoke configs (the MoE, Mamba-2 and hybrid ones are
+in tests/test_torch_moe.py and tests/test_torch_ssm.py), the port's own
+decode against its own prefill, the init's structure and its refusals.
 
 Inputs are made with numpy from a seed, and parameters are the
 reference's own draws carried across with ``from_jax`` (threefry cannot be
@@ -85,11 +86,10 @@ def test_configs_carry_the_reference_numbers(arch):
 
 
 def test_registry_names_and_refusals():
-    assert set(base.names()) | set(base.NOT_PORTED) == set(rbase.ASSIGNED)
-    assert not set(base.names()) & set(base.NOT_PORTED)
-    for name in base.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            base.get(name)
+    """All ten of the reference's assigned architectures are ported."""
+    assert set(base.names()) == set(rbase.ASSIGNED)
+    for name in rbase.ASSIGNED:
+        assert base.get(name).name == name
     with pytest.raises(KeyError):
         base.get("no-such-arch")
     assert base.INPUT_SHAPES == {
@@ -300,13 +300,15 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
             {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
 
 
-def test_unported_families_raise():
-    cfg, _ = _smoke("granite-8b")
-    for bad, what in ((dict(num_experts=4, top_k=2), "MoE"),
-                      (dict(family="ssm"), "Mamba-2"),
-                      (dict(family="hybrid", attn_every=2), "hybrid")):
-        with pytest.raises(NotImplementedError, match=what):
-            model.init(cfg.replace(**bad), device="cpu")
+def test_jamba_stack_needs_whole_periods():
+    """The refusal that remains: a Jamba stack of 12 layers is no whole
+    number of 8-layer periods (the reference asserts it)."""
+    jamba = importlib.import_module("repro_torch.configs.jamba_52b")
+    cfg = jamba.smoke_config().replace(num_layers=12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        model.init(cfg, device="cpu")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        model.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_supports_shape_and_shape_variant_match_reference():
