@@ -88,6 +88,15 @@ Phases (any failure raises and exits non-zero):
      fedavg_sgd; then hubert-xlarge's encoder loss at full width, 12 of 48
      layers, 2 x 4,096 frames, 2 fim_lbfgs steps and their twin.  Each step
      prints its loss, seconds, tokens/s, peak memory and Gram launches;
+  sharded. the same granite-8b train step (2 layers, 4 x 4,096 tokens, 4
+     cohorts) on a (1, 1) ("data", "model") DeviceMesh over a 1-rank NCCL
+     group (``make_train_step(..., mesh=)``: params and ZeRO-1 optimizer
+     state as DTensors, each cohort sharded over the data axes, the Gram
+     from the local shards and one (2m+1)^2 all-reduce) beside the
+     unsharded step, 2 steps each from one init: step 1's loss equal, one
+     Gram launch and one Gram all-reduce a step, dir_norm and every param
+     leaf within TRAIN_DIR_TOL; then one dry-run record (granite-20b's
+     train step on a fake 16 x 16 mesh of 256 ranks) in a subprocess;
   llm_families. qwen3-moe-235b-a22b (2 of 94 layers), dbrx-132b (2 of
      40), jamba-v0.1-52b (one period of 8 of its 32 layers) and
      mamba2-370m (all 48) at full width in bf16, each from fresh counts
@@ -142,9 +151,12 @@ from repro_torch.fed import codecs, simulator, strategies  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
                                  flash_attention, ops, ref, vlbfgs)
+from repro_torch.launch import cost as costlib  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.launch.train import (init_train_state,  # noqa: E402
                                       make_prefill_step, make_serve_step,
-                                      make_train_step, opt_config)
+                                      make_train_step, opt_config,
+                                      shard_batch, shard_train_state)
 from repro_torch.models import attention, cnn, moe, transformer  # noqa: E402
 from repro_torch.models import model as zoo  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
@@ -331,6 +343,18 @@ HUBERT_LAYERS, HUBERT_B, HUBERT_MICRO, HUBERT_STEPS = 12, 2, 2, 2
 # dir_norm by O(1)
 TRAIN_DIR_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-4
+# phase "sharded": the same granite-8b train step (TRAIN_LAYERS, TRAIN_B x
+# TRAIN_S, TRAIN_MICRO cohorts) on a (1, 1) ("data", "model") DeviceMesh
+# over a 1-rank NCCL group (make_train_step(..., mesh=)) beside the
+# unsharded step, SHARDED_STEPS each from the same init: step 1's loss
+# equal; each step one Gram launch and one (2m+1)^2 f32 all-reduce;
+# dir_norm within TRAIN_DIR_TOL and each param leaf within TRAIN_DIR_TOL of
+# its norm (the llm_train twin's bound: on one rank the two steps run the
+# same local ops, so the reading is expected to be 0).  Then one dry-run
+# record (launch/dryrun.py) in a subprocess: SHARDED_DRYRUN's train step on
+# a fake 16 x 16 mesh
+SHARDED_STEPS = 2
+SHARDED_DRYRUN = ("granite-20b", "train_4k", "16x16")
 # the card's memory
 CARD_GB = 80.0
 # phase "llm_families": the MoE, Mamba-2 and hybrid families served at full
@@ -2277,6 +2301,122 @@ def llm_train(dev, granite=None, hubert=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase "sharded": the federated train step on a DeviceMesh
+# ---------------------------------------------------------------------------
+def sharded_rows(step, state, batch, steps: int, tag: str, n: int,
+                 counted: bool) -> tuple[list, tuple]:
+    """``steps`` calls of a train step from ``state`` = (params, opt), each
+    from fresh counts: -> (rows, the last state).  ``counted``: under the
+    collective counter (``launch/cost.CostCounter(flops=False)``), each
+    row with its (n, n) f32 all-reduces."""
+    rows = []
+    for t in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        counter = costlib.CostCounter(flops=False)
+        with counter if counted else contextlib.nullcontext():
+            (params, opt, st), sec = timed_s(lambda: step(*state, batch))
+        state = (params, opt)
+        row = {"phase": "sharded", "run": tag, "step": t + 1,
+               "loss": float(st["loss"]), "dir_norm": float(st["dir_norm"]),
+               "seconds": sec, "peak_memory_GB":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "gram_launches": read_counts()["vlbfgs_gram"]}
+        if counted:
+            row["gram_all_reduces"] = counter.calls_of(
+                "all-reduce", (n, n), torch.float32)
+            row["collectives"] = dict(counter.count)
+        emit(row)
+        print(f"{tag} step {t + 1}: loss {row['loss']:.6f} dir_norm "
+              f"{row['dir_norm']:.6g} {sec:.3f} s peak "
+              f"{row['peak_memory_GB']:.2f} GB Gram launches "
+              f"{row['gram_launches']}", flush=True)
+        require(row["gram_launches"] == 1, f"{tag} step {t + 1}: "
+                f"{row['gram_launches']} Gram launches, want 1")
+        rows.append(row)
+    return rows, state
+
+
+def sharded_dryrun(arch: str, shape: str, mesh: str) -> dict:
+    """One dry-run record in a subprocess (its fake process group of 256
+    or 512 ranks cannot live beside this process's NCCL group)."""
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--out", out],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        require(proc.returncode == 0, f"dry run {arch} x {shape} x {mesh}: "
+                f"{proc.stderr[-2000:]}")
+        with open(os.path.join(out, f"{arch}_{shape}_{mesh}.json")) as f:
+            rec = json.load(f)
+    emit({"phase": "sharded_dryrun", **rec})
+    require(rec["status"] == "ok" and rec["collectives"]["count"],
+            f"dry run record {rec}")
+    return rec
+
+
+def sharded_phase(dev, cfg=None, backend: str = "nccl") -> dict:
+    """The unsharded fim_lbfgs step, then the sharded one on a (1, 1) mesh,
+    from the same init on the same batch (see SHARDED_STEPS); ``cfg`` and
+    ``backend``: a CPU rehearsal's smaller config and "gloo"."""
+    import torch.distributed as dist
+
+    cfg = cfg or granite_8b.CONFIG.replace(num_layers=TRAIN_LAYERS)
+    ocfg = opt_config(cfg)
+    n = 2 * ocfg.m + 1
+    toks = torch.from_numpy(zipf_tokens(TRAIN_B, TRAIN_S, cfg.vocab_size,
+                                        seed=3)).to(dev)
+
+    def fresh():
+        return init_train_state(cfg, ocfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+
+    plain, (params, opt) = sharded_rows(
+        make_train_step(cfg, ocfg, TRAIN_MICRO), fresh(), {"tokens": toks},
+        SHARDED_STEPS, f"{cfg.name}/unsharded", n, counted=False)
+    want = [p.cpu() for p in tree_leaves(params)]
+    del params, opt
+    free_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1, device_type=dev.type)
+            state = shard_train_state(cfg, ocfg, *fresh(), mesh)
+            sharded, (params, opt) = sharded_rows(
+                make_train_step(cfg, ocfg, TRAIN_MICRO, mesh=mesh), state,
+                shard_batch({"tokens": toks}, mesh, TRAIN_MICRO),
+                SHARDED_STEPS, f"{cfg.name}/sharded", n, counted=True)
+            leaf_err = [float(torch.linalg.vector_norm(
+                (p.to_local().cpu().float() - w.float())) / max(float(
+                    torch.linalg.vector_norm(w.float())), 1e-30))
+                for p, w in zip(tree_leaves(params), want, strict=True)]
+            del params, opt, state
+        finally:
+            dist.destroy_process_group()
+    free_cuda()
+    dir_rel = [abs(a["dir_norm"] - b["dir_norm"]) / abs(b["dir_norm"])
+               for a, b in zip(sharded, plain, strict=True)]
+    gate = {"phase": "sharded_gate", "loss": [[a["loss"], b["loss"]] for a, b
+                                              in zip(sharded, plain)],
+            "dir_norm_rel": dir_rel, "max_leaf_err": max(leaf_err),
+            "tol": TRAIN_DIR_TOL}
+    emit(gate)
+    require(sharded[0]["loss"] == plain[0]["loss"], f"sharded step 1 loss "
+            f"{sharded[0]['loss']} != unsharded {plain[0]['loss']}")
+    require(all(r["gram_all_reduces"] == 1 for r in sharded),
+            f"sharded Gram all-reduces {[r['gram_all_reduces'] for r in sharded]}"
+            f", want one (2m+1)^2 f32 a step")
+    require(max(dir_rel) <= TRAIN_DIR_TOL, f"sharded dir_norm {dir_rel}")
+    require(max(leaf_err) <= TRAIN_DIR_TOL, f"sharded params {max(leaf_err)}")
+    record = sharded_dryrun(*SHARDED_DRYRUN)
+    return {"plain": plain, "sharded": sharded, "gate": gate,
+            "dryrun": record,
+            "gram_launches": sum(r["gram_launches"] for r in plain + sharded)}
+
+
+# ---------------------------------------------------------------------------
 # phase "llm_families": MoE, Mamba-2 and the hybrid at full width
 # ---------------------------------------------------------------------------
 class RouteRecorder:
@@ -2749,6 +2889,13 @@ def main() -> int:
     train_gram = sum(r["gram_launches"] for r in trained.values())
     free_cuda()
 
+    # phase "sharded": the train step on a (1, 1) DeviceMesh beside the
+    # unsharded one, and one dry-run record; launches from fresh counts
+    t0 = time.perf_counter()
+    sharded = sharded_phase(dev)
+    emit({"phase": "sharded_seconds", "seconds": time.perf_counter() - t0})
+    train_gram += sharded["gram_launches"]
+
     # phase "llm_families": MoE, Mamba-2 and the hybrid at full width, each
     # path from fresh counts
     t0 = time.perf_counter()
@@ -2786,7 +2933,11 @@ def main() -> int:
                  "src/repro/kernels/vlbfgs.py:40", [*gram_rows, gram_mamba],
                  total["vlbfgs_gram"]),
          "launches_are": "one a server step, read in place from the "
-                         "history; one a fim_lbfgs LLM train step",
+                         "history; one a fim_lbfgs LLM train step; on a "
+                         "mesh one a replication group of local shards, "
+                         "then one (2m+1)^2 all-reduce",
+         "sharded_launches": sum(r["gram_launches"]
+                                 for r in sharded["sharded"]),
          **{phase: {k: row[k] for k in (
              "shape", "dtype", "kernel_ms", "kernel_call_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_is")}

@@ -1,0 +1,4 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ASSIGNED, ArchConfig, FedConfig, INPUT_SHAPES, ShapeConfig, get, names,
+    register,
+)

@@ -94,6 +94,16 @@ class ArchConfig:
                 n += 3 * d * self.d_ff
         return n
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of num_experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d = self.d_model
+        moe_layers = sum(self._layer_is_moe(i) for i in range(self.num_layers))
+        expert_params = moe_layers * self.num_experts * 3 * d * self.d_ff
+        active_expert = moe_layers * self.top_k * 3 * d * self.d_ff
+        return self.param_count() - expert_params + active_expert
+
     def _layer_is_attention(self, layer: int) -> bool:
         if self.family in ("ssm",):
             return False
@@ -194,6 +204,15 @@ def get(name: str) -> ArchConfig:
 def names() -> list[str]:
     _load_all()
     return sorted(_REGISTRY)
+
+
+# the architectures this repository is assigned, in the reference's order
+# (the dry run's "--arch all")
+ASSIGNED = [
+    "dbrx-132b", "phi4-mini-3.8b", "granite-20b", "jamba-v0.1-52b",
+    "qwen3-32b", "mamba2-370m", "qwen3-moe-235b-a22b", "granite-8b",
+    "hubert-xlarge", "chameleon-34b",
+]
 
 
 def _load_all() -> None:

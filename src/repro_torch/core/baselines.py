@@ -37,6 +37,11 @@ def sgd_init(params, momentum: float = 0.0) -> SgdState:
     return SgdState(momentum=_zeros_f32(params), step=_step0(params))
 
 
+def sgd_axes(param_axes) -> SgdState:
+    """Logical sharding axes of ``sgd_init``'s state."""
+    return SgdState(momentum=param_axes, step="")
+
+
 def sgd_update(state: SgdState, params, grad, lr: float,
                momentum: float = 0.0):
     vel = tree_map(lambda v, g: momentum * v + g.float(), state.momentum, grad)
@@ -55,6 +60,11 @@ class AdamState(NamedTuple):
 def adam_init(params) -> AdamState:
     return AdamState(mu=_zeros_f32(params), nu=_zeros_f32(params),
                      step=_step0(params))
+
+
+def adam_axes(param_axes) -> AdamState:
+    """Logical sharding axes of ``adam_init``'s state."""
+    return AdamState(mu=param_axes, nu=param_axes, step="")
 
 
 def adam_update(state: AdamState, params, grad, lr: float,
@@ -96,3 +106,34 @@ def feddane_inner_grad(local_grad, local_grad_at_start, global_grad, params,
 def dane_update(state: DaneState, params, avg_client_params):
     """Server step: the average of the clients' inner solutions."""
     return avg_client_params, DaneState(state.step + 1), {}
+
+
+# ---------------------------------------------------------------------------
+# Uniform optimizer facade
+# ---------------------------------------------------------------------------
+def make(name: str, params, fed_cfg):
+    """-> (state, update_fn(state, params, grad, fim_diag) -> (params,
+    state, stats)); the Fisher diagonal is ignored by the first-order
+    baselines.  ``fim_lbfgs`` takes its knobs from ``fed_cfg`` as the
+    reference's façade does, and its Gram's kernel mode from
+    ``fed_cfg.kernels``."""
+    from repro_torch.core import fim_lbfgs
+
+    if name == "fim_lbfgs":
+        ocfg = fim_lbfgs.FimLbfgsConfig(
+            learning_rate=fed_cfg.second_order_lr, m=fed_cfg.lbfgs_m,
+            damping=fed_cfg.fim_damping, fim_ema=fed_cfg.fim_ema,
+            max_step_norm=fed_cfg.max_step_norm, kernels=fed_cfg.kernels)
+        state = fim_lbfgs.init(params, ocfg)
+
+        def upd(state, params, grad, fim_diag):
+            return fim_lbfgs.update(state, params, grad, fim_diag, ocfg)
+
+        return state, upd
+    if name == "fedavg_sgd":
+        return sgd_init(params), lambda s, p, g, f: sgd_update(
+            s, p, g, fed_cfg.learning_rate)
+    if name == "fedavg_adam":
+        return adam_init(params), lambda s, p, g, f: adam_update(
+            s, p, g, fed_cfg.learning_rate)
+    raise ValueError(f"unknown optimizer {name!r}")

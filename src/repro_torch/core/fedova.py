@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import aggregation
 from repro_torch.utils.pytree import tree_map
@@ -19,6 +20,40 @@ from repro_torch.utils.pytree import tree_map
 class OvaModel(NamedTuple):
     components: object   # tree, leaves (n_classes, ...): binary classifiers
     n_classes: int
+
+
+def init(component_init: Callable, n_classes: int,
+         generator: torch.Generator | None = None) -> OvaModel:
+    """``component_init(generator)`` -> the params of ONE binary
+    classifier; the n_classes draws (one after another from
+    ``generator``, the reference's one key a class) stacked."""
+    draws = [component_init(generator) for _ in range(n_classes)]
+    return OvaModel(components=tree_map(lambda *ls: torch.stack(ls), *draws),
+                    n_classes=n_classes)
+
+
+def binary_labels(y: torch.Tensor, cls: int) -> torch.Tensor:
+    """Ground-truth membership for component ``cls``: 1 if y == cls."""
+    return (y == cls).to(torch.int32)
+
+
+def client_class_mask(y: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """(n_classes,) f32 mask of the classes present in a client's local
+    data: which components the client trains (Alg. 2 Step 2)."""
+    onehot = F.one_hot(y.long(), n_classes).float()
+    return (onehot.sum(dim=0) > 0).float()
+
+
+def add_class(model: OvaModel, component_init: Callable,
+              generator: torch.Generator | None = None) -> OvaModel:
+    """Smooth adaptation to environment changes (paper Sec. IV-B Remark):
+    "when new classes emerge, FedOVA just needs to create a new
+    classifier".  Appends a freshly drawn component; the existing ones are
+    untouched."""
+    new = component_init(generator)
+    return OvaModel(components=tree_map(
+        lambda buf, n: torch.cat([buf, n[None].to(buf.dtype)], dim=0),
+        model.components, new), n_classes=model.n_classes + 1)
 
 
 def component(model: OvaModel, cls: int):

@@ -15,6 +15,7 @@ from torch.func import grad, vmap
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.sharding import LeafSum
 
 
 class FimState(NamedTuple):
@@ -119,17 +120,22 @@ def update_(state: FimState, new_diag, ema: float) -> FimState:
     return FimState(diag=state.diag, steps=state.steps + 1)
 
 
-def mean_diag(state: FimState) -> torch.Tensor:
-    """Mean of the Fisher diagonal across all parameters (f32 scalar)."""
-    leaves = tree_leaves(state.diag)
-    total = torch.stack([d.float().sum() for d in leaves]).sum()
-    return total / float(max(sum(d.numel() for d in leaves), 1))
+def mean_diag(state: FimState, leaf_sum=None) -> torch.Tensor:
+    """Mean of the Fisher diagonal across all parameters (f32 scalar).
+    ``leaf_sum`` (``utils.sharding.LeafSum``; ``LeafSum.local``, the tree
+    held whole, when None): the leaves are this rank's shards of a tree
+    laid out on a mesh (one scalar all-reduce)."""
+    if leaf_sum is None:
+        leaf_sum = LeafSum.local(state.diag)
+    total = leaf_sum.weighted([d.float().sum() for d in tree_leaves(state.diag)])
+    return total / float(max(leaf_sum.numel, 1))
 
 
-def smooth_y(state: FimState, s, damping: float, rel_damping: float = 0.1):
+def smooth_y(state: FimState, s, damping: float, rel_damping: float = 0.1,
+             leaf_sum=None):
     """Paper Alg. 1 line 8: y_t = B̄_t s_t with B̄ = Γ̄ + λ_t I, where
     λ_t = damping + rel_damping·mean(Γ̄) (see ``repro.core.fim.smooth_y``
     for why the relative term is there)."""
-    lam = damping + rel_damping * mean_diag(state)
+    lam = damping + rel_damping * mean_diag(state, leaf_sum)
     return tree_map(lambda d, si: ((d + lam) * si.float()).to(si.dtype),
                     state.diag, s)

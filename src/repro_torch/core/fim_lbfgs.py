@@ -14,7 +14,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import fim, lbfgs
-from repro_torch.utils.pytree import tree_axpy, tree_dot, tree_map, tree_norm
+from repro_torch.utils.pytree import tree_axpy, tree_map
+from repro_torch.utils.sharding import LeafSum
 
 
 class FimLbfgsConfig(NamedTuple):
@@ -47,8 +48,20 @@ def init(params, cfg: FimLbfgsConfig) -> FimLbfgsState:
     )
 
 
+def state_axes(param_axes, cfg: FimLbfgsConfig) -> FimLbfgsState:
+    """Logical sharding axes of the state: the history gets a leading
+    "history" axis; the Fisher diagonal shards like the parameters."""
+    hist = tree_map(lambda a: ("history," + a) if a else "history", param_axes)
+    return FimLbfgsState(
+        history=lbfgs.History(s=hist, y=hist, idx="", count=""),
+        fim=fim.FimState(diag=param_axes, steps=""),
+        step="",
+    )
+
+
 def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
-           learning_rate: Optional[float] = None, donate: bool = False):
+           learning_rate: Optional[float] = None, donate: bool = False,
+           leaf_sum=None):
     """One server round given aggregated ḡ and Γ̄.
     Returns (params, state, stats); stats are 0-d device tensors.
 
@@ -58,18 +71,28 @@ def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
     its buffers in place (``lbfgs.push_``), so neither the (m, ...)
     history nor the diagonal is copied; the numbers are those of the
     functional update, bit for bit.  The federated strategies keep the
-    functional update (their callers copy and compare states)."""
+    functional update (their callers copy and compare states).
+
+    ``leaf_sum`` (``utils.sharding.LeafSum``; ``LeafSum.local(grad)``, the
+    trees held whole, when None): every tree is this rank's shards of a
+    tree laid out on a mesh, all sharded alike (the ZeRO-1 layout of
+    ``launch/train.py``'s sharded step); the step then runs on the shards,
+    and its only communication is the Gram's one (2m+1)² all-reduce and
+    the scalar all-reduces of its norms, dots and mean(Γ̄)."""
     lr = cfg.learning_rate if learning_rate is None else learning_rate
+    if leaf_sum is None:
+        leaf_sum = LeafSum.local(grad)
 
     fim_state = (fim.update_ if donate else fim.update)(
         state.fim, fim_diag, cfg.fim_ema)
 
     # Alg. 1 line 6: p_t = -H_t ḡ (the Gram matrix runs through the CUDA
     # kernel when cfg.kernels enables it for the tensors' device)
-    p = lbfgs.direction(state.history, grad, kernels=cfg.kernels)
+    p = lbfgs.direction(state.history, grad, kernels=cfg.kernels,
+                        leaf_sum=leaf_sum)
 
-    p_norm = tree_norm(p)
-    grad_norm = tree_norm(grad)
+    pp, gg = leaf_sum.dots([(p, p), (grad, grad)])
+    p_norm, grad_norm = torch.sqrt(pp), torch.sqrt(gg)
     if cfg.max_step_norm:
         # trust region on the actual step ||η p_t|| (not the raw direction)
         pn = p_norm * lr
@@ -86,11 +109,11 @@ def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
     new_params = tree_axpy(1.0, s, params)
 
     # Alg. 1 line 8: y_t = B̄_t s_t  with B̄ = Γ̄ + λI
-    y = fim.smooth_y(fim_state, s, cfg.damping, cfg.rel_damping)
+    y = fim.smooth_y(fim_state, s, cfg.damping, cfg.rel_damping, leaf_sum)
 
     # curvature safeguard (Lemma 1 bounds): skip degenerate pairs
-    sy = tree_dot(s, y)
-    sn, yn = tree_norm(s), tree_norm(y)
+    sy, ss, yy = leaf_sum.dots([(s, y), (s, s), (y, y)])
+    sn, yn = torch.sqrt(ss), torch.sqrt(yy)
     ok = sy > cfg.curvature_eps * sn * yn
 
     if donate:

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.sharding import LeafSum
 
 
 class History(NamedTuple):
@@ -87,8 +88,9 @@ def push_(h: History, s, y, ok: torch.Tensor) -> History:
 # ---------------------------------------------------------------------------
 def gram_matrix(h: History, g) -> torch.Tensor:
     """M[i,j] = <b_i, b_j> for b = [s_0.., y_0.., g]; f32 accumulation,
-    one leaf and one column block at a time (the plain path: CPU tensors
-    and kernels="off"; no f32 copy of a whole bf16 history leaf)."""
+    one leaf and one column block at a time (``gram``'s plain path: CPU
+    tensors and kernels="off"; no f32 copy of a whole bf16 history
+    leaf)."""
     return kernel_ref.vlbfgs_gram_leaves_ref(
         tree_leaves(h.s), tree_leaves(h.y), tree_leaves(g))
 
@@ -115,22 +117,30 @@ def direction_coeffs(M: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
     def slot(age):  # age 0 = newest
         return torch.remainder(idx - 1 - age, m)
 
+    # entries and rows at 0-d device indices, gathered as 1-element
+    # indices (a 0-d index would read its value on the host)
+    def row(i):
+        return M.index_select(0, i.reshape(1))[0]
+
+    def entry(i, j):
+        return row(i).index_select(0, j.reshape(1))[0]
+
     def rho_of(i):
-        sy = M[i, m + i]
+        sy = entry(i, m + i)
         return torch.where(torch.abs(sy) > 1e-20, 1.0 / sy, zero)
 
     alphas = []
     for age in range(m):
         i = slot(age)
         rho = rho_of(i) * (age < count).float()
-        alpha = rho * torch.dot(M[i], delta)          # <s_i, q>
+        alpha = rho * torch.dot(row(i), delta)        # <s_i, q>
         delta = delta.index_add(0, (m + i).reshape(1), -alpha.reshape(1))
         alphas.append(alpha)
     alphas = torch.stack(alphas)
 
     newest = slot(0)
-    sy = M[newest, m + newest]
-    yy = M[m + newest, m + newest]
+    sy = entry(newest, m + newest)
+    yy = entry(m + newest, m + newest)
     gamma = torch.where((count > 0) & (yy > 1e-20), sy / yy,
                         torch.ones((), dtype=torch.float32, device=dev))
     delta = delta * gamma
@@ -140,8 +150,9 @@ def direction_coeffs(M: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
         i = slot(age)
         live = (age >= 0) & (age < count)
         rho = rho_of(i) * live.float()
-        beta = rho * torch.dot(M[m + i], delta)       # <y_i, r>
-        alpha = torch.where(live, alphas[age.clamp(0, m - 1)], zero)
+        beta = rho * torch.dot(row(m + i), delta)     # <y_i, r>
+        alpha = torch.where(live, alphas.index_select(
+            0, age.clamp(0, m - 1).reshape(1))[0], zero)
         delta = delta.index_add(0, i.reshape(1), (alpha - beta).reshape(1))
     return delta
 
@@ -172,31 +183,35 @@ def combine(h: History, g, delta: torch.Tensor):
     return tree_map(leaf, h.s, h.y, g)
 
 
-def _gram_via_kernel(h: History, g, kernels: str) -> torch.Tensor:
-    """Gram matrix through the hand-written kernel, which reads the basis
-    [s_0.., y_0.., g] in place from the history's (m, ...) leaves and g's
-    leaves in one launch, each group in its own dtype (a bf16 history is
-    read as it is: no f32 copy).  The reference concatenates the (2m+1, D)
-    f32 basis first, for one Pallas call."""
-    def leaves(tree):
-        return [leaf.contiguous() for leaf in tree_leaves(tree)]
+def gram(h: History, g, kernels: str = "off", leaf_sum=None) -> torch.Tensor:
+    """The server step's Gram matrix, ``kernels`` ("auto" | "on" | "off")
+    sending it through the hand-written kernel for CUDA tensors, which
+    reads the basis [s_0.., y_0.., g] in place from the history's (m, ...)
+    leaves and g's leaves, each group in its own dtype (a bf16 history is
+    read as it is: no f32 copy); the plain path is ``gram_matrix``'s.  The
+    reference concatenates the (2m+1, D) f32 basis first, for one Pallas
+    call.
 
-    return kernel_ops.vlbfgs_gram_leaves(leaves(h.s), leaves(h.y), leaves(g),
-                                         mode=kernels)
+    ``leaf_sum`` (``utils.sharding.LeafSum``, ``LeafSum.local(g)`` when
+    None): ``h`` and ``g`` are this rank's shards of a history laid out on
+    a mesh, and the Gram is summed from the local shards and reduced by one
+    all-reduce (``kernels.ops.vlbfgs_gram_leaves_sharded``).  A history
+    held whole is its one-group case: one kernel launch, no all-reduce."""
+    if leaf_sum is None:
+        leaf_sum = LeafSum.local(g)
+    return kernel_ops.vlbfgs_gram_leaves_sharded(
+        *([leaf.contiguous() for leaf in tree_leaves(t)]
+          for t in (h.s, h.y, g)), leaf_sum, mode=kernels)
 
 
-def direction(h: History, g, kernels: str = "off"):
+def direction(h: History, g, kernels: str = "off", leaf_sum=None):
     """Full VL-BFGS step: p = -H_t g (Alg. 1 line 6).
 
-    ``kernels`` ("auto" | "on" | "off") sends the Gram matrix through the
-    CUDA kernel for CUDA tensors; the plain path is the per-leaf
-    ``gram_matrix``."""
+    The Gram matrix is ``gram(h, g, kernels, leaf_sum)``; the two loops
+    and the combination run on it (replicated on every rank of a mesh)
+    and on the local shards, with no communication."""
     m = tree_leaves(h.s)[0].shape[0]
-    if kernel_ops.resolve(kernels, _device(g)) == "plain":
-        M = gram_matrix(h, g)
-    else:
-        M = _gram_via_kernel(h, g, kernels)
-    delta = direction_coeffs(M, h.idx, h.count, m)
+    delta = direction_coeffs(gram(h, g, kernels, leaf_sum), h.idx, h.count, m)
     return combine(h, g, delta)
 
 

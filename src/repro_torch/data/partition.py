@@ -49,3 +49,8 @@ def noniid_partition(labels: np.ndarray, num_clients: int, ell: int, n_classes: 
         np.sort(np.concatenate(parts)) if parts else np.array([], np.int64)
         for parts in clients
     ]
+
+
+def labels_per_client(labels: np.ndarray, partition: list[np.ndarray]) -> list[set]:
+    """The set of labels each client's indices hold."""
+    return [set(np.unique(labels[idx]).tolist()) for idx in partition]

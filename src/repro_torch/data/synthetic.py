@@ -73,3 +73,16 @@ def zipf_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0) -> np.ndar
     probs = 1.0 / ranks
     probs /= probs.sum()
     return rng.choice(vocab, size=(n_seqs, seq_len), p=probs).astype(np.int32)
+
+
+def batches(x: np.ndarray, y: np.ndarray, batch_size: int,
+            rng: np.random.Generator, epochs: int = 1):
+    """Shuffled minibatch iterator (drops the ragged tail, paper-style B):
+    the reference's numpy stream, draw for draw."""
+    n = len(x)
+    bs = min(batch_size, n)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for i in range(0, n - bs + 1, bs):
+            idx = order[i:i + bs]
+            yield x[idx], y[idx]

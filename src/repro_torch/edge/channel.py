@@ -48,8 +48,8 @@ def draw_snr_lin(cfg: ChannelConfig, num_clients: int,
                  rng: np.random.Generator) -> np.ndarray:
     """Static per-client mean linear SNR (lognormal shadowing in dB) —
     the array-state constructor shared by :class:`Channel` and the fleet
-    engine's ``FleetState`` (``repro.edge.fleet``, not ported yet) (identical rng call,
-    so both paths draw identical populations from the same seed)."""
+    engine's ``FleetState`` (``repro_torch.edge.fleet``) (identical rng
+    call, so both paths draw identical populations from the same seed)."""
     snr_db = rng.normal(cfg.snr_db_mean, cfg.snr_db_std, num_clients)
     return 10.0 ** (snr_db / 10.0)
 

@@ -45,8 +45,9 @@ def draw_flops_per_s(cfg: DeviceConfig, num_clients: int,
                      rng: np.random.Generator) -> np.ndarray:
     """Per-client effective throughput (lognormal straggler spread) —
     the array-state constructor shared by :class:`DeviceFleet` and the
-    fleet engine's ``FleetState`` (``repro.edge.fleet``, not ported yet) (identical rng
-    call, so both paths draw identical populations from the same seed)."""
+    fleet engine's ``FleetState`` (``repro_torch.edge.fleet``) (identical
+    rng call, so both paths draw identical populations from the same
+    seed)."""
     mu = np.log(cfg.flops_per_s_mean)
     if cfg.flops_per_s_sigma > 0:
         return rng.lognormal(mu, cfg.flops_per_s_sigma, num_clients)

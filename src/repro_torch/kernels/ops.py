@@ -87,6 +87,31 @@ def vlbfgs_gram_leaves(s_leaves, y_leaves, g_leaves, mode: str = "auto"):
     return _vl.gram_leaves(s_leaves, y_leaves, g_leaves)
 
 
+def vlbfgs_gram_leaves_sharded(s_leaves, y_leaves, g_leaves, leaf_sum,
+                               mode: str = "auto"):
+    """The Gram matrix of a history laid out on a mesh, from each rank's
+    local shards (``vlbfgs_gram_leaves``' arguments, each leaf this rank's
+    shard; s, y and g of a leaf sharded alike): the leaves that share a
+    replication factor go through one ``vlbfgs_gram_leaves`` call (the
+    kernel launches once a group, at most one a distinct factor), each
+    group's partial weighted by ``leaf_sum.weights`` (1 / the ranks that
+    hold the same shard), the partials summed, then ONE all-reduce of the
+    (2m+1)² f32 matrix over the whole mesh (``utils.sharding.LeafSum``):
+    Theorem 3's O(m²) exchange."""
+    s_leaves, y_leaves, g_leaves = list(s_leaves), list(y_leaves), list(g_leaves)
+    groups: dict[float, list[int]] = {}
+    for i, w in enumerate(leaf_sum.weights):
+        groups.setdefault(w, []).append(i)
+    total = None
+    for w, idx in groups.items():
+        part = vlbfgs_gram_leaves([s_leaves[i] for i in idx],
+                                  [y_leaves[i] for i in idx],
+                                  [g_leaves[i] for i in idx], mode=mode)
+        part = part * w if w != 1.0 else part
+        total = part if total is None else total + part
+    return leaf_sum.all_reduce(total)
+
+
 def int8_uniforms(x, generator: torch.Generator) -> torch.Tensor:
     """The rounding uniforms of one int8 round-trip: one ``torch.rand``
     draw shaped like ``x`` from ``generator``."""

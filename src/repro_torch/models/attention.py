@@ -13,13 +13,16 @@ reference.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_rope, constrain, dense_init,
+                                       rms_norm, split_heads)
+from repro_torch.utils import sharding as shd
 
 
 def attn_init(generator: torch.Generator, cfg, stack: int | None = None) -> dict:
@@ -40,18 +43,58 @@ def attn_init(generator: torch.Generator, cfg, stack: int | None = None) -> dict
     return params
 
 
+def attn_axes(cfg, stack: int | None = None) -> dict:
+    """The logical axes of ``attn_init``'s tree."""
+    pre = "layers," if stack else ""
+    axes = {"wq": pre + "embed,qkv", "wk": pre + "embed,qkv",
+            "wv": pre + "embed,qkv", "wo": pre + "qkv,embed"}
+    if cfg.qk_norm:
+        axes["q_norm"] = pre + "head_dim"
+        axes["k_norm"] = pre + "head_dim"
+    return axes
+
+
 def _project_qkv(p, cfg, x, positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.num_heads, "batch,seq,heads")
+    k = split_heads(x @ p["wk"], cfg.num_kv_heads, "batch,seq,kv_heads")
+    v = split_heads(x @ p["wv"], cfg.num_kv_heads, "batch,seq,kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch,seq,heads,head_dim")
+    k = constrain(k, "batch,seq,kv_heads,head_dim")
+    v = constrain(v, "batch,seq,kv_heads,head_dim")
     return q, k, v
+
+
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` of attention tensors (batch, seq, heads, hd), whose
+    output keeps (batch, seq, heads, ...) in front; on a
+    mesh (DTensor q) a ``local_map`` of it: attention is independent over
+    the batch and the heads, so each rank attends its own shards with no
+    communication.  k and v are laid out as q's heads; where q's heads are
+    sharded over mesh axes that KV does not divide, k and v are first
+    repeated to one head a query head (the GQA fold, query head h reading
+    KV head h // G, keeps each rank's query heads beside their KV heads
+    only where KV divides).  The same scores either way."""
+    if not shd.is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    H, KV = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    ways = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                     if p.is_shard(2))
+    if H != KV and KV % ways:
+        k, v = (t.repeat_interleave(H // KV, dim=2) for t in (k, v))
+    pl = list(q.placements)
+    return local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(
+                         q, k, v)
 
 
 def _chunked_attention(q, k, v, cfg, positions, causal: bool):
@@ -95,7 +138,8 @@ def attn_apply(p, cfg, x, causal: bool = True, kernels: str = "auto"):
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if ops.resolve(kernels, x.device) == "kernel" and not grad:
+    if (ops.resolve(kernels, x.device) == "kernel" and not grad
+            and not shd.is_dtensor(q)):
         window = cfg.window if cfg.attn_variant == "sliding_window" else 0
         # (B,S,H,hd) -> (B,H,S,hd) views: the kernel reads them by stride
         # and returns the output in q's memory layout, so the transpose
@@ -103,10 +147,14 @@ def attn_apply(p, cfg, x, causal: bool = True, kernels: str = "auto"):
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window, mode=kernels).transpose(1, 2)
+        out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
     else:
-        out = _chunked_attention(q, k, v, cfg, positions, causal)
-    out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ p["wo"]
+        # the heads merged where they lie (on a mesh, inside each rank's
+        # local attention: DTensor could not split a shard of the merged
+        # dim back into heads in the backward)
+        out = _on_local_heads(lambda q, k, v: _chunked_attention(
+            q, k, v, cfg, positions, causal).flatten(2), q, k, v)
+    return constrain(out @ p["wo"], "batch,seq,embed")
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +175,11 @@ def cache_init(cfg, batch: int, window: int, dtype, device) -> KVCache:
     )
 
 
+def cache_axes() -> KVCache:
+    return KVCache(k="batch,window,kv_heads,head_dim",
+                   v="batch,window,kv_heads,head_dim", pos="")
+
+
 def attn_decode(p, cfg, x, cache: KVCache):
     """One-token decode. x: (B, 1, d).  Ring-buffer write at slot pos % W
     for the sliding window; for full attention the window equals the max
@@ -136,29 +189,47 @@ def attn_decode(p, cfg, x, cache: KVCache):
     and the returned cache holds the same tensors: the reference's
     ``dynamic_update_slice`` under ``jit`` donates its buffer, and an eager
     copy would move the whole cache every step.  ``pos`` stays a device
-    tensor, so a step never waits on the host."""
+    tensor, so a step never waits on the host.  On a mesh (a DTensor
+    cache) the write and the attention run on each rank's shards of the
+    cache (``local_map``), q laid out as the cache's heads."""
     B = x.shape[0]
-    hd = cfg.resolved_head_dim
-    W = cache.k.shape[1]
     pos = cache.pos
     q, k_new, v_new = _project_qkv(p, cfg, x, pos.reshape(1))
-    slot = (pos % W).reshape(1).long()
-    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
-    k, v = cache.k, cache.v
+    if shd.is_dtensor(cache.k):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
 
+        pl = list(cache.k.placements)
+        rep = [Replicate()] * len(pl)
+        out = local_map(
+            lambda *a: _decode_local(*a, cfg), out_placements=pl,
+            in_placements=(pl, pl, pl, pl, pl, rep),
+            device_mesh=cache.k.device_mesh, redistribute_inputs=True)(
+                q, k_new, v_new, cache.k, cache.v, pos)
+    else:
+        out = _decode_local(q, k_new, v_new, cache.k, cache.v, pos, cfg)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim).to(x.dtype)
+    return out @ p["wo"], KVCache(k=cache.k, v=cache.v, pos=pos + 1)
+
+
+def _decode_local(q, k_new, v_new, k, v, pos, cfg):
+    """The cache write at slot pos % W and one query's attention over the
+    cache: (B, 1, H, hd) f32."""
+    B, _, H, hd = q.shape
+    W = k.shape[1]
+    slot = (pos % W).reshape(1).long()
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
     KV = k.shape[2]
-    G = cfg.num_heads // KV
-    qh = q.reshape(B, 1, KV, G, hd)
+    qh = q.reshape(B, 1, KV, H // KV, hd)
     scores = torch.einsum("bckgh,bskh->bkgcs", qh.float() * hd ** -0.5,
                           k.float())  # (B,KV,G,1,W)
     # Ring-buffer validity: after writing position `pos`, the cache holds the
     # last min(pos+1, W) positions.  Before the first wrap only slots
     # 0..pos are populated; after wrapping every slot is live.
-    slots = torch.arange(W, device=x.device)
+    slots = torch.arange(W, device=q.device)
     valid = (pos >= W) | (slots <= pos)
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgcs,bskh->bckgh", probs, v.float())
-    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
-    return out @ p["wo"], KVCache(k=k, v=v, pos=pos + 1)
+    return out.reshape(B, 1, H, hd)

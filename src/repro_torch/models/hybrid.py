@@ -21,9 +21,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm)
-from repro_torch.models.transformer import (_chunked_ce, _layer, logits_fn,
+from repro_torch.models.layers import (constrain, dense_init, embed_init,
+                                       mlp_apply, mlp_axes, mlp_init, rms_norm)
+from repro_torch.models.transformer import (_chunked_ce, _layer, embed_lookup,
+                                            logits_fn, prefix_axes,
                                             stack_cache)
 
 PERIOD = 8
@@ -68,6 +69,25 @@ def init_params(cfg, generator: torch.Generator) -> dict:
             "head": dense_init(generator, (d, cfg.vocab_size), dtype)}
 
 
+def param_axes(cfg) -> dict:
+    """The logical-axis tree of ``init_params``'s params: the reference's,
+    the restacked (P, 3, ...) leaves with a second "layers"."""
+    _periods(cfg)
+    mm = {name: prefix_axes(mamba2.mamba_axes(stack=True))
+          for name in ("m1", "m2")}
+    mm["ffn_d"] = prefix_axes(mlp_axes(stack=True))
+    mm["ffn_e"] = prefix_axes(moe.moe_axes(stack=True))
+    for name in ("ln_m1", "ln_f1", "ln_m2", "ln_f2"):
+        mm[name] = "layers,layers,embed"
+    ma = {"m": mamba2.mamba_axes(stack=True), "ffn_d": mlp_axes(stack=True),
+          "attn": attn.attn_axes(cfg, stack=True),
+          "ffn_e": moe.moe_axes(stack=True)}
+    for name in ("ln_m", "ln_f1", "ln_a", "ln_f2"):
+        ma[name] = "layers,embed"
+    return {"embed": "vocab,embed", "mm": mm, "ma": ma, "final_ln": "embed",
+            "head": "embed,vocab"}
+
+
 def _mm_block(p, cfg, h, aux):
     h = h + mamba2.mamba_apply(p["m1"], cfg, rms_norm(h, p["ln_m1"]))
     h = h + mlp_apply(p["ffn_d"], rms_norm(h, p["ln_f1"]))
@@ -92,13 +112,14 @@ def _period(mm_p, ma_p, cfg, h, aux, kernels: str, remat: bool):
             h, aux = checkpoint(_mm_block, mp, cfg, h, aux, use_reentrant=False)
         else:
             h, aux = _mm_block(mp, cfg, h, aux)
+        h = constrain(h, "batch,seq,embed")
     return _ma_block(ma_p, cfg, h, aux, kernels)
 
 
 def forward(params, cfg, tokens, kernels: str = "auto"):
     """tokens (B, S) at positions 0..S-1 -> (hidden (B, S, d), the MoE aux
     losses summed in f32).  ``kernels`` is the attention's kernel mode."""
-    x = params["embed"][tokens]
+    x = constrain(embed_lookup(params["embed"], tokens), "batch,seq,embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for p in range(params["ma"]["ln_m"].shape[0]):
@@ -108,6 +129,7 @@ def forward(params, cfg, tokens, kernels: str = "auto"):
                                 use_reentrant=False)
         else:
             x, aux = _period(mm_p, ma_p, cfg, x, aux, kernels, False)
+        x = constrain(x, "batch,seq,embed")
     return rms_norm(x, params["final_ln"]), aux
 
 
@@ -147,6 +169,14 @@ def init_cache(cfg, batch: int, context: int, device) -> HybridCache:
         ma_kv=stack_cache(kv, (P,)),
         pos=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def cache_axes(cfg) -> HybridCache:
+    """The logical axes of ``init_cache``'s cache."""
+    st, kv = mamba2.state_axes(), attn.cache_axes()
+    return HybridCache(mm_m1=prefix_axes(st, "layers,layers,"),
+                       mm_m2=prefix_axes(st, "layers,layers,"),
+                       ma_m=prefix_axes(st), ma_kv=prefix_axes(kv), pos="")
 
 
 def decode_step(params, cfg, cache: HybridCache, token):

@@ -4,9 +4,11 @@ custom backward).
 
 Parameters are plain dicts of tensors in the reference's layout: dense
 weights ``(in, out)`` applied as ``x @ W``, stacked layers with a leading
-``num_layers`` dim.  The reference's logical sharding axes and its
-activation constraints (``constrain``, ``use_mesh``) wait for the launch
-slice of the port.
+``num_layers`` dim.  Each ``*_init`` has an ``*_axes`` twin beside it that
+returns the matching tree of logical-axis strings (``utils/sharding.py``;
+leaves with a stacked-layer dim prefix ``"layers"``), and ``use_mesh`` /
+``constrain`` are the reference's activation constraints on a
+``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,81 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils import sharding as shd
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraint helper (identity outside a mesh context)
+# ---------------------------------------------------------------------------
+_CURRENT_MESH = None
+
+
+class use_mesh:
+    """Context manager installing the ``DeviceMesh`` that ``constrain``
+    and the MoE's expert-parallel path read."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _CURRENT_MESH
+        self._prev, _CURRENT_MESH = _CURRENT_MESH, self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _CURRENT_MESH
+        _CURRENT_MESH = self._prev
+        return False
+
+
+def current_mesh():
+    """The mesh of the innermost ``use_mesh``, or None."""
+    return _CURRENT_MESH
+
+
+def constrain(x, axes: str, rules=None):
+    """``x`` redistributed to the placements of its logical ``axes`` (under
+    ``rules`` over ``DEFAULT_RULES``) on the current mesh; the identity
+    with no mesh set or on a plain tensor."""
+    if _CURRENT_MESH is None or not shd.is_dtensor(x):
+        return x
+    placements = shd.placements_for(x.shape, axes, _CURRENT_MESH, rules)
+    if list(x.placements) == list(placements):
+        return x
+    return _Constrain.apply(x, tuple(placements))
+
+
+class _Constrain(torch.autograd.Function):
+    """``x.redistribute(placements)`` whose backward sends the cotangent
+    back to x's placements with each ``Partial`` read as ``Replicate``:
+    the cotangent of each rank's partial sum is the whole cotangent of the
+    reduced value (Megatron's all-reduce, whose backward is the identity).
+    DTensor's own backward would give a Partial cotangent, and every
+    weight gradient upstream of it would then be a full-size partial sum
+    on each model rank."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        from torch.distributed.tensor import Replicate
+
+        ctx.src = [Replicate() if p.is_partial() else p for p in x.placements]
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shd.to_placements(g, ctx.src), None
+
+
+def split_heads(x, heads: int, axes: str):
+    """(..., S, heads·hd) -> (..., S, heads, hd).  On a mesh the last dim is
+    first laid out as ``axes`` lays out (..., S, heads): sharded whole heads
+    at a time, or replicated where the head count does not divide the
+    model axis (DTensor cannot split a shard across a head)."""
+    lead, f = tuple(x.shape[:-1]), x.shape[-1]
+    if _CURRENT_MESH is not None and shd.is_dtensor(x):
+        x = shd.to_placements(x, shd.placements_for(lead + (heads,), axes,
+                                                    _CURRENT_MESH))
+    return x.reshape(lead + (heads, f // heads))
 
 
 # ---------------------------------------------------------------------------
@@ -74,8 +151,34 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     ``x.dtype``, then ``x * inv * scale`` in ``x.dtype``; its backward is
     the reference's custom VJP line for line: cotangents in the activation
     dtype, f32 per-position ``inv`` and ``<g·scale, x>``, ``dscale``
-    summed in f32, then cast."""
+    summed in f32, then cast.  On a mesh (DTensor x) each rank normalises
+    its own rows (``_rms_norm_local``)."""
+    if shd.is_dtensor(x):
+        return _rms_norm_local(x, scale, eps)
     return _RmsNorm.apply(x, scale, eps)
+
+
+def _rms_norm_local(x, scale, eps: float):
+    """``rms_norm`` of a DTensor as a ``local_map``: a norm over the last
+    dim is local to each shard of the others (the last dim is gathered
+    first where it is sharded), so each rank runs the plain function on
+    its rows; DTensor's own propagation through the per-row dot would
+    flatten a batch dim sharded over "data" with a head dim sharded over
+    "model" into one strided shard, which is slow to plan.  The scale's
+    gradient is a partial sum over the mesh dims that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    last = x.dim() - 1
+    pl = [Replicate() if p.is_partial() or p.is_shard(last) else p
+          for p in x.placements]
+    rep = [Replicate()] * len(pl)
+    grad_scale = [Partial() if p.is_shard() else Replicate() for p in pl]
+    return local_map(lambda a, s: _RmsNorm.apply(a, s, eps),
+                     out_placements=pl, in_placements=(pl, rep),
+                     in_grad_placements=(pl, grad_scale),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(
+                         x, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +214,16 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
+def mlp_axes(stack: int | None = None) -> dict:
+    """The logical axes of ``mlp_init``'s tree."""
+    pre = "layers," if stack else ""
+    return {"wi": pre + "embed,mlp", "wg": pre + "embed,mlp",
+            "wo": pre + "mlp,embed"}
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = (x @ p["wi"]) * F.silu(x @ p["wg"])
-    return h @ p["wo"]
+    if h.dim() != 3:
+        return h @ p["wo"]
+    h = constrain(h, "batch,seq,mlp")
+    return constrain(h @ p["wo"], "batch,seq,embed")

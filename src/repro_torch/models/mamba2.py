@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import constrain, dense_init, rms_norm
+from repro_torch.utils import sharding as shd
 
 
 def _dims(cfg):
@@ -49,6 +50,15 @@ def mamba_init(generator: torch.Generator, cfg, stack: int | None = None) -> dic
         "norm": torch.ones(lead + (d_in,), dtype=dtype, device=dev),
         "out_proj": dense_init(generator, lead + (d_in, d), dtype),
     }
+
+
+def mamba_axes(stack: int | None = None) -> dict:
+    """The logical axes of ``mamba_init``'s tree."""
+    pre = "layers," if stack else ""
+    return {"in_proj": pre + "embed,ssm_inner", "conv_w": pre + "conv,ssm_inner",
+            "A_log": pre + "ssm_heads", "D": pre + "ssm_heads",
+            "dt_bias": pre + "ssm_heads", "norm": pre + "ssm_inner",
+            "out_proj": pre + "ssm_inner,embed"}
 
 
 def _split_proj(cfg, zxbcdt):
@@ -89,6 +99,11 @@ def state_init(cfg, batch: int, device) -> MambaState:
     )
 
 
+def state_axes() -> MambaState:
+    return MambaState(ssm="batch,ssm_heads,head_dim,ssm_state",
+                      conv="batch,conv,ssm_inner")
+
+
 def _chunk(state, xs_q, B_q, C_q, dt_q, dA_q):
     """One chunk of SSD: (state (B,nh,hd,N), inputs (B,Q,nh,hd) (B,Q,N)
     (B,Q,N) (B,Q,nh) (B,Q,nh)) -> (new state, y (B,Q,nh,hd))."""
@@ -113,33 +128,71 @@ def _chunk(state, xs_q, B_q, C_q, dt_q, dA_q):
 
 
 def mamba_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence SSD. x: (B, S, d) -> (B, S, d)."""
-    B, S, _ = x.shape
+    """Full-sequence SSD. x: (B,S,d) -> (B,S,d).  On a mesh (DTensor x) the
+    projections run on DTensors and the SSD between them on each rank's
+    rows (``_ssd_on_local_rows``)."""
+    zxbcdt = x @ p["in_proj"]
+    if shd.is_dtensor(zxbcdt):
+        y = _ssd_on_local_rows(p, cfg, zxbcdt, x.dtype)
+    else:
+        y = _ssd(p["conv_w"], p["A_log"], p["D"], p["dt_bias"], p["norm"],
+                 zxbcdt, cfg=cfg, dtype=x.dtype)
+    return constrain(y @ p["out_proj"], "batch,seq,embed")
+
+
+_SSD_PARAMS = ("conv_w", "A_log", "D", "dt_bias", "norm")
+
+
+def _ssd(conv_w, A_log, D, dt_bias, norm, zxbcdt, *, cfg, dtype):
+    """The SSD between the projections: (B,S, 2·d_in+2N+nh) -> the gated,
+    normed (B,S,d_in) in ``dtype``."""
+    B, S, _ = zxbcdt.shape
     d_in, nh, N = _dims(cfg)
     hd = cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, S)
     while S % Q:
         Q //= 2
 
-    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
-    xBC = _causal_conv(xBC, p["conv_w"])
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    xBC = _causal_conv(xBC, conv_w)
     xs = xBC[..., :d_in].reshape(B, S, nh, hd)
     Bm = xBC[..., d_in:d_in + N].float()                     # (B,S,N)
     Cm = xBC[..., d_in + N:].float()                         # (B,S,N)
-    dt = _softplus(dt.float() + p["dt_bias"])                # (B,S,nh)
-    dA = dt * -torch.exp(p["A_log"])                         # (B,S,nh)
+    dt = _softplus(dt.float() + dt_bias)                     # (B,S,nh)
+    dA = dt * -torch.exp(A_log)                              # (B,S,nh)
     xs_f = xs.float()
 
-    state = torch.zeros((B, nh, hd, N), device=x.device)
+    state = torch.zeros((B, nh, hd, N), device=zxbcdt.device)
     ys = []
     for c in range(0, S, Q):
         q = slice(c, c + Q)
         state, y = _chunk(state, xs_f[:, q], Bm[:, q], Cm[:, q], dt[:, q],
                           dA[:, q])
         ys.append(y)
-    y = torch.cat(ys, dim=1) + p["D"][None, None, :, None] * xs_f
-    y = rms_norm(y.reshape(B, S, d_in).to(x.dtype), p["norm"]) * F.silu(z)
-    return y @ p["out_proj"]
+    y = torch.cat(ys, dim=1) + D[None, None, :, None] * xs_f
+    return rms_norm(y.reshape(B, S, d_in).to(dtype), norm) * F.silu(z)
+
+
+def _ssd_on_local_rows(p, cfg, zxbcdt, dtype):
+    """``_ssd`` as a ``local_map``: the scan is independent over the batch,
+    so each rank runs it on its rows, the projection gathered over the
+    other mesh dims (its last dim packs z, x, B, C and dt, which a model
+    shard would split across their boundaries) and the SSD's parameters
+    replicated; their gradients are partial sums over the mesh dims that
+    split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [Shard(0) if p_.is_shard(0) else Replicate()
+            for p_ in zxbcdt.placements]
+    rep = [Replicate()] * len(rows)
+    grad = [Partial() if p_.is_shard() else Replicate() for p_ in rows]
+    fn = local_map(
+        lambda *a: _ssd(*a, cfg=cfg, dtype=dtype), out_placements=rows,
+        in_placements=(rep,) * len(_SSD_PARAMS) + (rows,),
+        in_grad_placements=(grad,) * len(_SSD_PARAMS) + (rows,),
+        device_mesh=zxbcdt.device_mesh, redistribute_inputs=True)
+    return fn(*(p[k] for k in _SSD_PARAMS), zxbcdt)
 
 
 def mamba_decode(p, cfg, x: torch.Tensor, state: MambaState):

@@ -7,6 +7,9 @@
     init_cache(cfg, B, ctx, device) -> cache                  [decode]
     decode_fn(params, cfg, c, t)    -> (logits, cache)
     synth_batch(cfg, shape, gen)    -> a random batch of ``shape``
+    param_axes(cfg), cache_axes(cfg) -> their logical-axis trees
+    input_specs(cfg, shape)         -> meta tensors of a step's inputs
+    input_axes(cfg, shape)          -> their logical axes
 
 The hybrid (Jamba) family runs ``models/hybrid.py``; every other family
 (dense, MoE, Mamba-2, the VLM and the audio encoder) runs
@@ -39,6 +42,17 @@ def init(cfg: ArchConfig, generator: torch.Generator | None = None,
                          f"asked for on {device}")
     mod = hybrid if is_hybrid(cfg) else transformer
     return mod.init_params(cfg, generator)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical-axis tree of ``init``'s params (``utils/sharding.py``),
+    the reference's ``init`` axes leaf for leaf."""
+    return (hybrid if is_hybrid(cfg) else transformer).param_axes(cfg)
+
+
+def cache_axes(cfg: ArchConfig):
+    """The logical-axis tree of ``init_cache``'s cache."""
+    return (hybrid if is_hybrid(cfg) else transformer).cache_axes(cfg)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
@@ -117,3 +131,37 @@ def shape_variant(cfg: ArchConfig, shape: ShapeConfig) -> ArchConfig:
     if shape.name == "long_500k" and cfg.family != "ssm":
         cfg = cfg.replace(attn_variant="sliding_window")
     return cfg
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors standing in for the step's data arguments (the
+    reference's ShapeDtypeStructs): train/prefill batches, or one decode
+    token against a length-S context."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "audio_embed":
+            specs = {"features": spec((B, S, cfg.d_model), torch.float32)}
+            if shape.kind == "train":
+                specs["labels"] = spec((B, S), torch.int32)
+            return specs
+        return {"tokens": spec((B, S), torch.int32)}
+    if cfg.frontend == "audio_embed":
+        return {"token": spec((B, 1, cfg.d_model), torch.float32)}
+    return {"token": spec((B, 1), torch.int32)}
+
+
+def input_axes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Logical axes of ``input_specs`` (batch -> data/pod)."""
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "audio_embed":
+            ax = {"features": "batch,seq,embed"}
+            if shape.kind == "train":
+                ax["labels"] = "batch,seq"
+            return ax
+        return {"tokens": "batch,seq"}
+    return {"token": "batch,seq,embed" if cfg.frontend == "audio_embed"
+            else "batch,seq"}

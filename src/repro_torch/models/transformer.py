@@ -18,8 +18,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm)
+from repro_torch.models.layers import (constrain, dense_init, embed_init,
+                                       mlp_apply, mlp_axes, mlp_init, rms_norm)
 
 LOSS_CHUNK = 512  # sequence chunk for the CE loss (bounds logits memory)
 
@@ -43,7 +43,7 @@ def stack_cache(cache: tuple, lead: tuple) -> tuple:
 # ---------------------------------------------------------------------------
 def init_params(cfg, generator: torch.Generator) -> dict:
     """-> params dict on the generator's device, in the reference's
-    structure and layout (its sharding axes wait for the launch slice)."""
+    structure and layout (its logical axes: ``param_axes``)."""
     L, d = cfg.num_layers, cfg.d_model
     dtype = cfg.activation_dtype
     device = generator.device
@@ -73,13 +73,48 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     return params
 
 
+def prefix_axes(tree, pre: str = "layers,"):
+    """Every axes string of ``tree`` with ``pre`` in front ("" becomes
+    ``pre`` without its comma)."""
+    if isinstance(tree, dict):
+        return {k: prefix_axes(v, pre) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(prefix_axes(v, pre) for v in tree))
+    return pre + tree if tree else pre.rstrip(",")
+
+
+def param_axes(cfg) -> dict:
+    """The logical-axis tree of ``init_params``'s params, leaf for leaf the
+    reference's ``init_params`` axes."""
+    embed = "embed,embed" if cfg.frontend == "audio_embed" else "vocab,embed"
+    layers = ({"mixer": mamba2.mamba_axes(stack=True)} if cfg.family == "ssm"
+              else {"attn": attn.attn_axes(cfg, stack=True)})
+    layers["ln1"] = "layers,embed"
+    if cfg.d_ff:
+        layers["ffn"] = (moe.moe_axes(stack=True) if cfg.num_experts
+                         else mlp_axes(stack=True))
+        layers["ln2"] = "layers,embed"
+    return {"embed": embed, "layers": layers, "final_ln": "embed",
+            "head": "embed,vocab"}
+
+
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 def embed_inputs(params, cfg, inputs):
     if cfg.frontend == "audio_embed":
-        return inputs.to(cfg.activation_dtype) @ params["embed"]
-    return params["embed"][inputs]
+        x = inputs.to(cfg.activation_dtype) @ params["embed"]
+    else:
+        x = embed_lookup(params["embed"], inputs)
+    return constrain(x, "batch,seq,embed")
+
+
+def embed_lookup(table, ids):
+    """Rows ``ids`` of the (vocab, d) table; on a mesh the table is
+    gathered over the vocab's model shards first (DTensor's vocab-parallel
+    lookup cannot take a Partial cotangent in its backward)."""
+    table = constrain(table, "vocab,embed", {"vocab": None})
+    return torch.nn.functional.embedding(ids, table)
 
 
 def _layer_body(lp, cfg, x, causal: bool, kernels: str):
@@ -117,13 +152,14 @@ def forward(params, cfg, inputs, kernels: str = "auto"):
                               use_reentrant=False)
         else:
             x, a = _layer_body(lp, cfg, x, causal, kernels)
+        x = constrain(x, "batch,seq,embed")
         aux = aux + a
     return rms_norm(x, params["final_ln"]), aux
 
 
 def logits_fn(params, cfg, hidden):
     """(hidden @ head) in the activation dtype, then f32."""
-    return (hidden @ params["head"]).float()
+    return constrain((hidden @ params["head"]).float(), "batch,seq,vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +177,9 @@ def _chunked_ce(params, cfg, hidden, labels, mask):
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, S, chunk):
         lg = logits_fn(params, cfg, hidden[:, c:c + chunk])    # (B,chunk,V) f32
+        # the gold logit is gathered from the whole vocabulary: on a mesh
+        # the chunk's logits are gathered over the model axis first
+        lg = constrain(lg, "batch,seq,vocab", {"vocab": None})
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, labels[:, c:c + chunk, None].long())[..., 0]
         mc = mask[:, c:c + chunk]
@@ -198,6 +237,12 @@ def init_cache(cfg, batch: int, context: int, device) -> DecodeCache:
         layer = attn.cache_init(cfg, batch, window, cfg.activation_dtype, device)
     return DecodeCache(stack_cache(layer, (cfg.num_layers,)),
                        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_axes(cfg) -> DecodeCache:
+    """The logical axes of ``init_cache``'s cache."""
+    layer = mamba2.state_axes() if cfg.family == "ssm" else attn.cache_axes()
+    return DecodeCache(prefix_axes(layer), "")
 
 
 def decode_step(params, cfg, cache: DecodeCache, token):

@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.configs.base import FedConfig as RFedConfig  # noqa: E402
 from repro.configs.paper_models import FMNIST_CNN as R_FMNIST  # noqa: E402

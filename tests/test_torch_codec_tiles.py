@@ -29,6 +29,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.kernels import codec_ops as rcodec_ops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402

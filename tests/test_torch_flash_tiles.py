@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402

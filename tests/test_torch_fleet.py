@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.edge import ChannelConfig as RChannelConfig  # noqa: E402
 from repro.edge import DeviceConfig as RDeviceConfig  # noqa: E402

@@ -46,6 +46,9 @@ FLEET_MODULES = ["repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
                  "repro_torch.checkpoint.run_state", "repro_torch.fed.simulator",
                  "repro_torch.edge.fleet", "repro_torch.edge.fleet.engine",
                  "repro_torch.edge.fleet.kernel", "repro_torch.edge.fleet.state"]
+# modules of the sharding and dry-run slice
+SHARD_MODULES = ["repro_torch.utils.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.launch.cost", "repro_torch.launch.dryrun"]
 
 
 def _port_files():
@@ -86,10 +89,10 @@ def test_every_module_imports_with_jax_blocked():
         "leaked = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"
-        f"missing = set({LLM_MODULES + EDGE_MODULES + FLEET_MODULES + FAMILY_MODULES!r}) "
+        f"missing = set({LLM_MODULES + EDGE_MODULES + FLEET_MODULES + FAMILY_MODULES + SHARD_MODULES!r}) "
         "- set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 82, names\n"
+        "assert len(names) >= 86, names\n"
         "print(len(names))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -125,6 +128,45 @@ TRAIN_NAMES = {
                                   "forward", "lm_loss", "HybridCache",
                                   "init_cache", "decode_step"],
 }
+# the sharding slice: the rules, the axes trees, the meshes, the shape
+# helpers, the sharded step and the dry run (merged into TRAIN_NAMES
+# below, module by module)
+SHARDING_NAMES = {
+    "repro_torch.models.hybrid": ["param_axes", "cache_axes"],
+    "repro_torch.utils.sharding": ["DEFAULT_RULES", "OPT_RULES",
+                                   "PARAM_RULES_FSDP", "parse_axes",
+                                   "spec_for", "specs_for_tree", "data_spec",
+                                   "placements_for", "distribute",
+                                   "distribute_tree", "LeafSum",
+                                   "mesh_all_reduce"],
+    "repro_torch.launch.mesh": ["make_mesh", "make_production_mesh",
+                                "make_debug_mesh",
+                                "fake_process_group", "PEAK_FLOPS_BF16",
+                                "HBM_BW", "NVLINK_BW"],
+    "repro_torch.launch.cost": ["CostCounter"],
+    "repro_torch.launch.dryrun": ["run_one", "run_step", "main"],
+    "repro_torch.models.layers": ["use_mesh", "constrain", "mlp_axes"],
+    "repro_torch.models.attention": ["attn_axes", "cache_axes"],
+    "repro_torch.models.mamba2": ["mamba_axes", "state_axes"],
+    "repro_torch.models.moe": ["moe_axes", "moe_apply_expert_parallel"],
+    "repro_torch.models.transformer": ["param_axes", "cache_axes"],
+    "repro_torch.models.model": ["param_axes", "cache_axes", "input_specs",
+                                 "input_axes"],
+    "repro_torch.core.fim_lbfgs": ["state_axes"],
+    "repro_torch.core.baselines": ["adam_axes", "sgd_axes", "make"],
+    "repro_torch.core.fedova": ["init", "binary_labels", "client_class_mask",
+                                "add_class"],
+    "repro_torch.data.partition": ["labels_per_client"],
+    "repro_torch.data.synthetic": ["batches"],
+    "repro_torch.kernels.ops": ["vlbfgs_gram_leaves_sharded"],
+    "repro_torch.core.lbfgs": ["gram"],
+    "repro_torch.configs": ["ASSIGNED"],
+    "repro_torch.launch.train": ["abstract_params", "train_state_shapes",
+                                 "abstract_cache", "train_state_axes",
+                                 "shard_train_state", "shard_batch"],
+}
+for _module, _names in SHARDING_NAMES.items():
+    TRAIN_NAMES.setdefault(_module, []).extend(_names)
 
 
 def test_train_slice_entry_points_import_with_jax_blocked():
@@ -145,6 +187,37 @@ def test_train_slice_entry_points_import_with_jax_blocked():
         " run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
+        "leaked = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dryrun_builds_a_record_with_jax_blocked():
+    """``python -m repro_torch.launch.dryrun``'s machinery imports and
+    builds one record (a smoke config's prefill on a fake 16 x 16 mesh of
+    256 ranks) in an interpreter where ``import jax`` fails; its argument
+    parser runs there too."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.configs import granite_8b\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "try:\n"
+        "    dryrun.main(['--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "mesh.fake_process_group(256)\n"
+        "rec = dryrun.run_one('granite-smoke', None, False,\n"
+        "    cfg=granite_8b.smoke_config(),\n"
+        "    shape=ShapeConfig('smoke_prefill', 64, 16, 'prefill'))\n"
+        "assert rec['status'] == 'ok' and rec['param_bytes'] > 0, rec\n"
+        "assert rec['flops_global'] > 0, rec\n"
         "leaked = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"

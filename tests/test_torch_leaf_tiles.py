@@ -36,6 +36,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.configs import paper_models as rcfg  # noqa: E402
 from repro.core import fim as rfim  # noqa: E402
@@ -638,7 +641,7 @@ def test_gram_leaves_plain_matches_reference_kernel(m, n_pairs):
     """``ops.vlbfgs_gram_leaves(mode="off")`` over a port history against
     the reference's ``_gram_via_kernel(h, g, "on")`` (the Pallas Gram in
     interpret mode) on the same history; and the port's own
-    ``_gram_via_kernel`` (its CPU path) against both."""
+    ``lbfgs.gram`` (its CPU path) against both."""
     rng = np.random.default_rng(m)
     shapes = {"w": (6, 7), "b": (10,), "z": {"k": (3, 2, 2)}}
 
@@ -660,7 +663,7 @@ def test_gram_leaves_plain_matches_reference_kernel(m, n_pairs):
     got = ops.vlbfgs_gram_leaves(tree_leaves(ph.s), tree_leaves(ph.y),
                                  tree_leaves(pg), mode="off").numpy()
     assert gram_err(got, want) <= TOL
-    via = plbfgs._gram_via_kernel(ph, pg, "auto").numpy()
+    via = plbfgs.gram(ph, pg, "auto").numpy()
     np.testing.assert_array_equal(via, got)
     emulated = gram_emulated([np.concatenate([
         a.reshape(m, -1).numpy(), b.reshape(m, -1).numpy(), c.reshape(1, -1).numpy()])

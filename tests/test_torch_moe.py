@@ -28,6 +28,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.configs import base as rbase  # noqa: E402
 from repro.configs import dbrx_132b as rdbrx  # noqa: E402

@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers to a machine, and
+# torch's thread pools contend there (a small op can take 100 ms)
+torch.set_num_threads(1)
 
 from repro.configs import chameleon_34b as rchameleon  # noqa: E402
 from repro.configs import granite_8b as rgranite  # noqa: E402

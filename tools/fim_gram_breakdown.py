@@ -21,7 +21,8 @@ cost hidden) and call ms (one call from an idle device), medians of 21:
     else a zero ``old``, ``.contiguous()`` and ``ops.fim_diag_update`` a
     leaf, as that version's ``_leaf_diag`` does;
   * ``fim_wide_leaf``: ``ops.fim_diag_update`` on the (600, 200,704) leaf;
-  * ``gram_history``: ``core.lbfgs._gram_via_kernel`` on an m = 10 history
+  * ``gram_history``: ``core.lbfgs.gram`` (``_gram_via_kernel`` in
+    versions before it) on an m = 10 history
     of the CNN's leaves (the version's server-step Gram, any basis build
     included);
   * ``gram_basis``: ``ops.vlbfgs_gram`` on the materialised (21, 206,922)
@@ -219,12 +220,13 @@ def main() -> int:
                        torch.cat([a.reshape(M, -1) for a in y], 1),
                        torch.cat([a.reshape(-1) for a in g])[None]])
     want = ref.vlbfgs_gram_ref(basis)
-    close(lbfgs._gram_via_kernel(h, g, "on"), want, 1e-5, "gram_history",
+    gram = getattr(lbfgs, "gram", None) or lbfgs._gram_via_kernel
+    close(gram(h, g, "on"), want, 1e-5, "gram_history",
           gram=True)
     close(ops.vlbfgs_gram(basis, mode="on"), want, 1e-5, "gram_basis",
           gram=True)
     timed({"row": "gram_history", "m": M, "shape": list(basis.shape)},
-          lambda: lbfgs._gram_via_kernel(h, g, "on"))
+          lambda: gram(h, g, "on"))
     timed({"row": "gram_basis", "shape": list(basis.shape)},
           lambda: ops.vlbfgs_gram(basis, mode="on"))
 
