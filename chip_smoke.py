@@ -70,6 +70,14 @@ Phases (any failure raises and exits non-zero):
      each of bandwidth_opt and energy_opt: the numpy ``exact`` backend
      against the float64 torch backend on the card (``jit``): identical
      decisions, clock, energy and batteries within rtol 1e-9;
+  sync. no device->host sync: the fleet backend's device bodies
+     (``_bw_widths``, ``_energy_widths``, ``_sync_round`` with and without
+     re-allocation) at 10^5 clients, then one call each of the kernel
+     wrappers (``fim_diag_update_leaves``, ``vlbfgs_gram_leaves``,
+     ``int8_roundtrip_leaves``, ``topk_select``, ``flash_attention``) at
+     the main path's shapes, each after a warm call, inputs on the card,
+     under ``torch.cuda.set_sync_debug_mode("error")``: a sync fails the
+     run;
   4. LLM serving: granite-8b at full width in bf16 (36 layers, ~8.2 B
      parameters drawn on the card): prefill of 2 Zipf prompts of 4,096
      tokens through the tensor-core kernel (36 launches a call, each one
@@ -146,7 +154,9 @@ from repro_torch.configs.paper_models import FMNIST_CNN  # noqa: E402
 from repro_torch.data.synthetic import make_classification, zipf_tokens  # noqa: E402
 from repro_torch.edge import (ChannelConfig, DeviceConfig, EdgeConfig,  # noqa: E402
                               EdgeRuntime, FleetEngine)
+from repro_torch.edge.allocation import BISECT_ITERS  # noqa: E402
 from repro_torch.edge.device import flops_grad_fim  # noqa: E402
+from repro_torch.edge.fleet import kernel as fleet_kernel  # noqa: E402
 from repro_torch.fed import codecs, simulator, strategies  # noqa: E402
 from repro_torch.fed.server import FederatedRun  # noqa: E402
 from repro_torch.kernels import (_build, codec_ops, fim_diag,  # noqa: E402
@@ -320,6 +330,10 @@ RESUME_HALF = 3
 FLEET_POPULATIONS = (100_000, 1_000_000)
 FLEET_SHARE = 0.01
 FLEET_RTOL = 1e-9
+# phase "sync": the fleet backend's device bodies at SYNC_CLIENTS clients
+# and one call of each kernel wrapper, each under
+# torch.cuda.set_sync_debug_mode("error"), where a device->host sync raises
+SYNC_CLIENTS = 100_000
 # phase "llm_train": the federated LLM train step (launch/train.py) at
 # granite-8b's full width, bf16, with the config's own m = 10 bf16
 # history, its depth cut from 36 layers to TRAIN_LAYERS (838,881,280
@@ -679,10 +693,12 @@ def check_gram_history_bf16(dev, m, shapes):
     beside an f32 g, read in place in one launch; held to the plain
     version (f32 products a leaf and a column block at a time) and to the
     f64 Gram at GRAM_TOL (gram_err), exactly symmetric, a second call
-    bit-equal.  The bound reads each bf16 row and g once.  The library
-    call is basis @ basis.T on the largest leaf's f32 basis alone (no one
-    call takes the leaves and dtypes together), built outside the
-    timing."""
+    bit-equal.  The bound reads each bf16 row and g once.  No one library
+    call takes the leaves and dtypes together, so the library time is
+    torch.matmul(b, b.T) summed over the leaves: each leaf's f32
+    (2m+1, n_i) basis b built in turn outside the timing, timed, freed
+    (the same work as the kernel's); the largest leaf's time is kept
+    beside it as ``library_largest_leaf_ms``."""
     gen = torch.Generator(device=dev).manual_seed(m + 1)
     bf16 = torch.bfloat16
     s, y, g = [], [], []
@@ -709,11 +725,15 @@ def check_gram_history_bf16(dev, m, shapes):
                     lambda: ops.vlbfgs_gram_leaves(s, y, g, mode="off"),
                     **reps)
     big = max(range(len(g)), key=lambda i: g[i].numel())
-    basis = torch.cat([s[big].reshape(m, -1).float(),
-                       y[big].reshape(m, -1).float(), g[big].reshape(1, -1)])
-    times["library_ms"] = time_ms(lambda: torch.matmul(basis, basis.T),
-                                  **reps)[0]
-    del basis
+    leaf_ms = []
+    for a, b, c in zip(s, y, g):
+        basis = torch.cat([a.reshape(m, -1).float(), b.reshape(m, -1).float(),
+                           c.reshape(1, -1)])
+        leaf_ms.append(time_ms(lambda: torch.matmul(basis, basis.T),
+                               **reps)[0])
+        del basis
+    times["library_ms"] = sum(leaf_ms)
+    times["library_largest_leaf_ms"] = leaf_ms[big]
     b_ms, by = bound_ms(D * (2 * m * 2 + 4) + n * n * 4,
                         2.0 * D * n * (n + 1) / 2)
     row = {"kernel": "vlbfgs_gram", "call": "bf16 history read in place "
@@ -721,8 +741,9 @@ def check_gram_history_bf16(dev, m, shapes):
            "leaves": len(shapes), "dtype": "bfloat16 s, y; float32 g",
            "launches_a_call": launches, "max_err": err, "rel_err": rel,
            "f64_rel_err": f64, "tol": GRAM_TOL, **times,
-           "library_is": "basis @ basis.T of the "
-           f"largest leaf alone ({g[big].numel()} columns, f32)",
+           "library_is": f"torch.matmul(b, b.T) summed over the {len(g)} "
+           "leaves' f32 bases (the largest alone: "
+           f"{g[big].numel()} columns)",
            "bound_ms": b_ms, "bound_by": by}
     emit(row)
     require(launches == 1, f"vlbfgs_gram bf16 history: {launches} launches, "
@@ -1938,6 +1959,131 @@ def fleet_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase "sync": no device->host sync in a device body or a kernel wrapper
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def sync_errors():
+    """Inside: ``torch.cuda.set_sync_debug_mode("error")``, so that any op
+    that waits for the device (a host read of a value, a blocking copy, a
+    data-dependent shape) raises."""
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def sync_phase(dev, leaf_shapes) -> dict:
+    """The card-side half of the RPL003 lint rule.  The fleet backend's
+    device bodies at SYNC_CLIENTS clients (E1's channel: equal widths,
+    per-client deadlines that drop some clients early so that
+    re-allocation moves survivors), then one call of each kernel wrapper
+    at the main path's shapes: a client's 8 leaves at B = 600, an m = 10
+    history of them, the 16-leaf (g, Γ) int8 payload, top-k at n = 2d and
+    k = ceil(0.1 n), granite-8b's bf16 prefill attention.  Inputs are made
+    on the card first and each call is warmed once; the checked call runs
+    under ``sync_errors``, and a sync fails the run.  The gate must catch
+    two planted syncs: the parent's selection (indexing by a 0-d argmax)
+    and a host->device copy of a number (torch's sync debug mode is a
+    prototype that does not see every sync)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    f64, n = torch.float64, SYNC_CLIENTS
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev,
+                                           dtype=f64)
+
+    d = sum(math.prod(s) for s in leaf_shapes)
+    snr = 10.0 ** uniform(0.2, 1.8)
+    eff = torch.log2(1.0 + snr)
+    up = torch.full((n,), 8.0 * d, dtype=f64, device=dev)
+    bits = 8.0 * up
+    tc = torch.exp(uniform(math.log(0.5), math.log(40.0)))
+    w = torch.full((n,), EDGE_CHANNEL.bandwidth_hz, dtype=f64, device=dev)
+    deadline = (tc + bits / (w * eff)) * uniform(0.7, 1.3)
+    budget = EDGE_CHANNEL.bandwidth_hz * n
+    c, w_min = uniform(0.1, 2.0), uniform(1e3, 1e5)
+    feas = uniform(0.0, 1.0) < 0.9
+    e_comp, battery = uniform(1.0, 5.0), torch.full_like(up, 50.0)
+    srv_rate = torch.full((), 1e9, dtype=f64, device=dev)
+
+    def sync_round(reallocate):
+        return lambda: fleet_kernel._sync_round(
+            w, snr, tc, up, e_comp, deadline, 1e-9, 0.2, srv_rate, 0.01,
+            battery, up, reallocate)
+
+    grads = [torch.randn((600, math.prod(s)), generator=gen, device=dev)
+             for s in leaf_shapes]
+    hist_s = [torch.randn((10, *s), generator=gen, device=dev) * 1e-2
+              for s in leaf_shapes]
+    hist_y = [a * 1.5 for a in hist_s]
+    hist_g = [torch.randn(s, generator=gen, device=dev) for s in leaf_shapes]
+    payload = [torch.randn(s, generator=gen, device=dev)
+               for s in leaf_shapes + leaf_shapes]
+    codec_gen = torch.Generator(device=dev).manual_seed(3)
+    flat = torch.randn(2 * d, generator=gen, device=dev)
+    q = torch.randn((2, 32, 4096, 128), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv = torch.randn((2, 8, 4096, 128), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    checks = {
+        "fleet._bw_widths": lambda: fleet_kernel._bw_widths(
+            bits, eff, tc, budget, BISECT_ITERS),
+        "fleet._energy_widths": lambda: fleet_kernel._energy_widths(
+            c, w_min, feas, budget, BISECT_ITERS),
+        "fleet._sync_round": sync_round(False),
+        "fleet._sync_round(reallocate)": sync_round(True),
+        "ops.fim_diag_update_leaves": lambda: ops.fim_diag_update_leaves(
+            grads, None, 0.0, mode="on"),
+        "ops.vlbfgs_gram_leaves": lambda: ops.vlbfgs_gram_leaves(
+            hist_s, hist_y, hist_g, mode="on"),
+        "ops.int8_roundtrip_leaves": lambda: ops.int8_roundtrip_leaves(
+            payload, codec_gen, mode="on"),
+        "ops.topk_select": lambda: ops.topk_select(
+            flat, math.ceil(0.1 * flat.numel()), mode="on"),
+        "ops.flash_attention": lambda: ops.flash_attention(
+            q, kv, kv, causal=True, mode="on"),
+    }
+    for name, call in checks.items():
+        call()
+        with sync_errors():
+            try:
+                call()
+            except RuntimeError as e:
+                fail(f"sync: {name} synchronised with the host: {e}")
+    planted = {
+        "index by a 0-d argmax": lambda: flat[torch.argmax(flat)],
+        "host->device copy": lambda: torch.as_tensor(np.float64(1.0),
+                                                     device=dev),
+    }
+    caught = {}
+    for name, call in planted.items():
+        with sync_errors():
+            try:
+                call()
+                caught[name] = False
+            except RuntimeError:
+                caught[name] = True
+    torch.cuda.synchronize()
+    rounds = {r: sync_round(r)() for r in (False, True)}
+    row = {"phase": "sync", "clients": n, "checked": list(checks),
+           "syncs": 0, "planted_caught": caught,
+           "dropped": int(rounds[False][3]),
+           "reallocated": int(rounds[True][6]),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    require(all(caught.values()), f"sync: the gate missed a planted sync "
+            f"({caught})")
+    require(row["dropped"] > 0 and row["reallocated"] > 0,
+            f"sync: the sync round dropped {row['dropped']} and "
+            f"re-allocated {row['reallocated']}: a branch went unchecked")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: LLM serving at full width
 # ---------------------------------------------------------------------------
 def timed_s(fn):
@@ -2868,6 +3014,10 @@ def main() -> int:
     # phase "fleet": no kernel of csrc/ (float64 torch ops on the card)
     fleet_phase(dev)
     free_cuda()
+    # phase "sync": the fleet bodies and each kernel wrapper under
+    # set_sync_debug_mode("error"); launches made here are not counted
+    sync_phase(dev, leaf_shapes)
+    free_cuda()
 
     # phase 4: LLM serving, each path from fresh counts
     llm = {"granite": serve_granite(dev)}
@@ -2940,7 +3090,8 @@ def main() -> int:
                                  for r in sharded["sharded"]),
          **{phase: {k: row[k] for k in (
              "shape", "dtype", "kernel_ms", "kernel_call_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "library_is")}
+             "bound_ms", "bound_by", "library_ms", "library_largest_leaf_ms",
+             "library_is")}
             for phase, row in (("llm_train", gram_rows[-1]),
                                ("llm_families", gram_mamba))},
          "llm_train_launches": train_gram},

@@ -49,6 +49,9 @@ _F64 = torch.float64
 
 
 def _f64(x, device) -> torch.Tensor:
+    # the host->device boundary: x is host data (numpy or a number), read
+    # on the host by design before it is copied to the device once
+    # repro: allow[RPL003]
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
@@ -62,7 +65,7 @@ def _need(T: torch.Tensor, bits, s, tc) -> torch.Tensor:
 
 
 def _bw_widths(bits, s, tc, budget: float, iters: int) -> torch.Tensor:
-    budget_t = _f64(budget, tc.device)
+    budget_t = torch.full((), budget, dtype=_F64, device=tc.device)
     lo = torch.max(tc)                     # infeasible: zero air time
     hi = torch.maximum(2.0 * lo, lo + 1e-6)
     # the doubling: hi·2^j for j = 0.._GROW_MAX (powers of two by
@@ -73,8 +76,11 @@ def _bw_widths(bits, s, tc, budget: float, iters: int) -> torch.Tensor:
     rows = max(1, _GROW_ELEMS // max(tc.numel(), 1))
     fits = torch.cat([_need(c, bits, s, tc) <= budget
                       for c in torch.split(cands, rows)])
-    fits[-1] = True                        # the cap stops the doubling
-    hi = cands[torch.argmax(fits.to(torch.int8))]
+    fits[-1:].fill_(True)                  # the cap stops the doubling
+    # select on the device: indexing by a 0-d tensor would read it on the
+    # host
+    first = torch.argmax(fits.to(torch.int8)).view(1)
+    hi = torch.index_select(cands, 0, first)[0]
     b_lo, b_hi = lo, hi
     for _ in range(int(iters)):
         mid = 0.5 * (b_lo + b_hi)
@@ -87,7 +93,7 @@ def _bw_widths(bits, s, tc, budget: float, iters: int) -> torch.Tensor:
 def _energy_widths(c, w_min, feas, budget: float, iters: int
                    ) -> torch.Tensor:
     n = c.shape[0]
-    budget_t = _f64(budget, c.device)
+    budget_t = torch.full((), budget, dtype=_F64, device=c.device)
     w_floor = torch.where(feas, w_min, budget / n)
     total_floor = torch.sum(w_floor)
     w_floor = torch.where(total_floor > budget,

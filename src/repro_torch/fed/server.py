@@ -328,14 +328,15 @@ class FederatedRun:
         # wall-clock encode cost + achieved ratio live in the metrics
         # registry only — never on the sim timeline, so traced replays
         # stay deterministic; the device is synchronised only here
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro: allow[RPL001]
         payload, res = self.strategy.compress_payload(
             payload, self.codec_generator, residual, codec=codec)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         m = self.tracer.metrics
-        m.histogram("codec_encode_s").observe(time.perf_counter() - t0,
-                                              codec=codec.spec())
+        m.histogram("codec_encode_s").observe(
+            time.perf_counter() - t0,  # repro: allow[RPL001]
+            codec=codec.spec())
         n_up = sum(ph.up_floats for ph in self.plan.phases)
         m.gauge("codec_ratio").set(codecs.achieved_ratio(codec, n_up),
                                    codec=codec.spec())

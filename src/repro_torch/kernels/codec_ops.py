@@ -15,6 +15,7 @@
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 
 import torch
 
@@ -48,7 +49,9 @@ def int8_leaf_table(sizes) -> list[int]:
     return first
 
 
-def int8_roundtrip_leaves(xs, us) -> tuple[list[torch.Tensor], torch.Tensor]:
+def int8_roundtrip_leaves(xs: Sequence[torch.Tensor],
+                          us: Sequence[torch.Tensor]
+                          ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """xs, us: leaves of one payload, contiguous f32 CUDA tensors of at
     least one element on one device, each u shaped like its x.  -> (the
     round-tripped leaves, shaped like xs; the (len(xs),) f32 scales).  One

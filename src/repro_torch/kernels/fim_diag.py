@@ -9,6 +9,7 @@ single-matrix ``fim_diag`` is the same kernel over a one-leaf table.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 
 import torch
 
@@ -43,7 +44,9 @@ def leaf_table(cols, vec: int) -> tuple[list[int], list[int], list[int]]:
     return order, first, shift
 
 
-def fim_diag_leaves(grads, olds, ema: float) -> list[torch.Tensor]:
+def fim_diag_leaves(grads: Sequence[torch.Tensor],
+                    olds: Sequence[torch.Tensor] | None,
+                    ema: float) -> list[torch.Tensor]:
     """grads: (B, D_i) contiguous CUDA tensors of one dtype (f32 or bf16)
     and one B; olds: (D_i,) contiguous f32 tensors on the same device, or
     None for zeros.  -> the (D_i,) f32 results, views of one flat buffer.

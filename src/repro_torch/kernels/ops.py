@@ -18,6 +18,8 @@ version.
 """
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from repro_torch.kernels import codec_ops as _codec
@@ -29,7 +31,7 @@ from repro_torch.kernels import vlbfgs as _vl
 MODES = ("auto", "on", "off")
 
 
-def resolve(mode: str, device) -> str:
+def resolve(mode: str, device: torch.device | str) -> str:
     """-> "kernel" | "plain" for a tensor on ``device``."""
     if mode not in MODES:
         raise ValueError(f"kernels mode must be one of {MODES}, got {mode!r}")
@@ -51,7 +53,8 @@ def fim_diag_update(grads, old_diag, ema: float, mode: str = "auto"):
     return _fim.fim_diag(grads, old_diag, ema)
 
 
-def fim_diag_update_leaves(grads, olds, ema: float,
+def fim_diag_update_leaves(grads: Sequence[torch.Tensor],
+                           olds: Sequence[torch.Tensor] | None, ema: float,
                            mode: str = "auto") -> list:
     """The fused Γ update of every (B, D_i) leaf of one client: the kernel
     takes all leaves in one launch; the plain version runs
@@ -175,7 +178,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     carries no autograd graph.  So it raises when grad mode is on and q, k
     or v requires grad, rather than return a result that would cut the
     gradient silently; a loss runs ``models.attention._chunked_attention``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
         raise RuntimeError(
             "flash_attention is forward only: q, k or v requires grad (a "
             "loss runs the plain chunked attention; see "

@@ -14,6 +14,7 @@ points into one (n, D) basis.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 
 import torch
 
@@ -88,7 +89,7 @@ def leaf_plan(n: int, cols, n_sm: int,
     return lanes, tile, chunk, first
 
 
-def _least_chunk(cols, blocks: int, quantum: int) -> int:
+def _least_chunk(cols: list[int], blocks: int, quantum: int) -> int:
     """The least multiple of ``quantum`` columns that cuts ``cols`` into at
     most ``blocks`` blocks (one where that cannot be)."""
     lo, hi = 1, -(-max(cols) // quantum)    # chunk / quantum
@@ -114,7 +115,9 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
-def _launch(rows, cols, count, half, device: torch.device) -> torch.Tensor:
+def _launch(rows: list[tuple[int, int, int]], cols: list[int],
+            count: tuple[int, int, int], half: tuple[int, int, int],
+            device: torch.device) -> torch.Tensor:
     """(n, n) Gram of leaves whose 3 row groups start at ``rows`` (a
     (s, y, g) address triple a leaf, 0 for an empty group) with
     ``count`` rows each, bf16 where ``half`` (3 flags) says so and f32
@@ -149,7 +152,9 @@ def _launch(rows, cols, count, half, device: torch.device) -> torch.Tensor:
     return total
 
 
-def gram_leaves(s_leaves, y_leaves, g_leaves) -> torch.Tensor:
+def gram_leaves(s_leaves: Sequence[torch.Tensor],
+                y_leaves: Sequence[torch.Tensor],
+                g_leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """Gram matrix of ``[s_0..s_{m-1}, y_0..y_{m-1}, g]`` read in place:
     s and y leaves are (m, *shape_i) contiguous CUDA history buffers in
     slot order, g leaves *shape_i contiguous, all on one device,
