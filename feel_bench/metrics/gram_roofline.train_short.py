@@ -1,0 +1,3 @@
+"""``gram_roofline.train``'s reading in the short-sequence cell, which reports its
+own end-to-end metric (``train_tokens_per_s.short``)."""
+from harness.metric_util import gram_share as read  # noqa: F401

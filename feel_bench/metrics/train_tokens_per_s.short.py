@@ -1,0 +1,3 @@
+"""``train_tokens_per_s``'s reading in the short-sequence cell, which reports its
+own end-to-end metric (``train_tokens_per_s.short``)."""
+from harness.metric_util import tokens_per_s as read  # noqa: F401
