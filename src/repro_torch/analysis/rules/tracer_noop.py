@@ -9,8 +9,10 @@ argument, because Python evaluates arguments before the no-op method
 discards them.
 
 This rule flags tracer/metrics/audit recording calls in
-``repro_torch/edge`` and ``repro_torch/fed`` whose arguments contain
-eager formatting or container building, unless the call is guarded:
+``repro_torch/edge``, ``repro_torch/fed`` and the LLM train step's
+``repro_torch/launch`` and ``repro_torch/core`` (its ``wall_span`` sites)
+whose arguments contain eager formatting or container building, unless
+the call is guarded:
 
   * lexically inside ``if <...>.enabled:`` (or the else-branch of
     ``if not <...>.enabled:``), or
@@ -26,7 +28,8 @@ import ast
 
 from repro_torch.analysis.core import ModuleSource, Rule, register
 
-HOT_PATHS = ("repro_torch/edge/", "repro_torch/fed/")
+HOT_PATHS = ("repro_torch/edge/", "repro_torch/fed/", "repro_torch/launch/",
+             "repro_torch/core/")
 
 # unambiguous Tracer recording methods
 TRACER_METHODS = {"span", "event", "record_round", "log_round", "wall_span"}

@@ -6,6 +6,12 @@ Server view of one round, given the aggregated ḡ and Γ̄:
   2. ω_{t+1} = ω_t + η p_t;  s_t = η p_t (with the trust-region clip)
   3. y_t = (Γ̄ + λI) s_t      — the FIM smoothing of Alg. 1 line 8
   4. push (s_t, y_t) unless the curvature test <s,y> > ε‖s‖‖y‖ fails
+
+``update(..., tracer=)`` marks each part as a span of the tracer's current
+step (``obs.Tracer.wall_span``): ``server.fim_ema``, ``lbfgs.direction``'s
+``server.gram``, ``server.two_loop`` and ``server.combine``, then
+``server.step``, ``server.smooth_y``, ``server.curvature`` and
+``server.push``.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import fim, lbfgs
+from repro_torch.obs import NULL_TRACER
 from repro_torch.utils.pytree import tree_axpy, tree_map
 from repro_torch.utils.sharding import LeafSum
 
@@ -61,7 +68,7 @@ def state_axes(param_axes, cfg: FimLbfgsConfig) -> FimLbfgsState:
 
 def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
            learning_rate: Optional[float] = None, donate: bool = False,
-           leaf_sum=None):
+           leaf_sum=None, tracer=NULL_TRACER):
     """One server round given aggregated ḡ and Γ̄.
     Returns (params, state, stats); stats are 0-d device tensors.
 
@@ -78,50 +85,58 @@ def update(state: FimLbfgsState, params, grad, fim_diag, cfg: FimLbfgsConfig,
     tree laid out on a mesh, all sharded alike (the ZeRO-1 layout of
     ``launch/train.py``'s sharded step); the step then runs on the shards,
     and its only communication is the Gram's one (2m+1)² all-reduce and
-    the scalar all-reduces of its norms, dots and mean(Γ̄)."""
+    the scalar all-reduces of its norms, dots and mean(Γ̄).
+
+    ``tracer``: the step's spans (module docstring), on ``tracer.step``."""
     lr = cfg.learning_rate if learning_rate is None else learning_rate
     if leaf_sum is None:
         leaf_sum = LeafSum.local(grad)
+    step = tracer.step
 
-    fim_state = (fim.update_ if donate else fim.update)(
-        state.fim, fim_diag, cfg.fim_ema)
+    with tracer.wall_span("server.fim_ema", round_id=step):
+        fim_state = (fim.update_ if donate else fim.update)(
+            state.fim, fim_diag, cfg.fim_ema)
 
     # Alg. 1 line 6: p_t = -H_t ḡ (the Gram matrix runs through the CUDA
     # kernel when cfg.kernels enables it for the tensors' device)
     p = lbfgs.direction(state.history, grad, kernels=cfg.kernels,
-                        leaf_sum=leaf_sum)
+                        leaf_sum=leaf_sum, tracer=tracer)
 
-    pp, gg = leaf_sum.dots([(p, p), (grad, grad)])
-    p_norm, grad_norm = torch.sqrt(pp), torch.sqrt(gg)
-    if cfg.max_step_norm:
-        # trust region on the actual step ||η p_t|| (not the raw direction)
-        pn = p_norm * lr
-        # (a tensor numerator: `float / tensor` would multiply by the
-        # reciprocal, one rounding away from the reference's quotient)
-        scale = torch.clamp_max(torch.full_like(pn, cfg.max_step_norm)
-                                / torch.clamp_min(pn, 1e-12), 1.0)
-    else:
-        scale = torch.ones((), dtype=torch.float32, device=p_norm.device)
+    with tracer.wall_span("server.step", round_id=step):
+        pp, gg = leaf_sum.dots([(p, p), (grad, grad)])
+        p_norm, grad_norm = torch.sqrt(pp), torch.sqrt(gg)
+        if cfg.max_step_norm:
+            # trust region on the actual step ||η p_t|| (not the raw direction)
+            pn = p_norm * lr
+            # (a tensor numerator: `float / tensor` would multiply by the
+            # reciprocal, one rounding away from the reference's quotient)
+            scale = torch.clamp_max(torch.full_like(pn, cfg.max_step_norm)
+                                    / torch.clamp_min(pn, 1e-12), 1.0)
+        else:
+            scale = torch.ones((), dtype=torch.float32, device=p_norm.device)
 
-    # Alg. 1 line 7: ω_{t+1} = ω_t + η p_t
-    s = tree_map(lambda pi: (lr * scale * pi.float()).to(pi.dtype), p)
-    del p
-    new_params = tree_axpy(1.0, s, params)
+        # Alg. 1 line 7: ω_{t+1} = ω_t + η p_t
+        s = tree_map(lambda pi: (lr * scale * pi.float()).to(pi.dtype), p)
+        del p
+        new_params = tree_axpy(1.0, s, params)
 
     # Alg. 1 line 8: y_t = B̄_t s_t  with B̄ = Γ̄ + λI
-    y = fim.smooth_y(fim_state, s, cfg.damping, cfg.rel_damping, leaf_sum)
+    with tracer.wall_span("server.smooth_y", round_id=step):
+        y = fim.smooth_y(fim_state, s, cfg.damping, cfg.rel_damping, leaf_sum)
 
     # curvature safeguard (Lemma 1 bounds): skip degenerate pairs
-    sy, ss, yy = leaf_sum.dots([(s, y), (s, s), (y, y)])
-    sn, yn = torch.sqrt(ss), torch.sqrt(yy)
-    ok = sy > cfg.curvature_eps * sn * yn
+    with tracer.wall_span("server.curvature", round_id=step):
+        sy, ss, yy = leaf_sum.dots([(s, y), (s, s), (y, y)])
+        sn, yn = torch.sqrt(ss), torch.sqrt(yy)
+        ok = sy > cfg.curvature_eps * sn * yn
 
-    if donate:
-        history = lbfgs.push_(state.history, s, y, ok)
-    else:
-        pushed = lbfgs.push(state.history, s, y)
-        history = tree_map(lambda new, old: torch.where(ok, new, old),
-                           pushed, state.history)
+    with tracer.wall_span("server.push", round_id=step):
+        if donate:
+            history = lbfgs.push_(state.history, s, y, ok)
+        else:
+            pushed = lbfgs.push(state.history, s, y)
+            history = tree_map(lambda new, old: torch.where(ok, new, old),
+                               pushed, state.history)
 
     stats = {
         "dir_norm": p_norm,

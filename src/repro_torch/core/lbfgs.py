@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.obs import NULL_TRACER
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from repro_torch.utils.sharding import LeafSum
 
@@ -111,8 +112,10 @@ def direction_coeffs(M: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
     idx = idx.long()
     count = count.long()
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    delta = torch.zeros((n,), dtype=torch.float32, device=dev)
-    delta[2 * m] = 1.0
+    # e_g made on the device: an item assignment (`delta[2 * m] = 1.0`)
+    # copies its scalar from pageable host memory, which waits for the
+    # device's queue
+    delta = (torch.arange(n, device=dev) == 2 * m).to(torch.float32)
 
     def slot(age):  # age 0 = newest
         return torch.remainder(idx - 1 - age, m)
@@ -204,15 +207,23 @@ def gram(h: History, g, kernels: str = "off", leaf_sum=None) -> torch.Tensor:
           for t in (h.s, h.y, g)), leaf_sum, mode=kernels)
 
 
-def direction(h: History, g, kernels: str = "off", leaf_sum=None):
+def direction(h: History, g, kernels: str = "off", leaf_sum=None,
+              tracer=NULL_TRACER):
     """Full VL-BFGS step: p = -H_t g (Alg. 1 line 6).
 
     The Gram matrix is ``gram(h, g, kernels, leaf_sum)``; the two loops
     and the combination run on it (replicated on every rank of a mesh)
-    and on the local shards, with no communication."""
+    and on the local shards, with no communication.  ``tracer`` marks the
+    three as the spans ``server.gram`` (its all-reduce included on a mesh),
+    ``server.two_loop`` and ``server.combine`` of ``tracer.step``."""
     m = tree_leaves(h.s)[0].shape[0]
-    delta = direction_coeffs(gram(h, g, kernels, leaf_sum), h.idx, h.count, m)
-    return combine(h, g, delta)
+    step = tracer.step
+    with tracer.wall_span("server.gram", round_id=step):
+        M = gram(h, g, kernels, leaf_sum)
+    with tracer.wall_span("server.two_loop", round_id=step):
+        delta = direction_coeffs(M, h.idx, h.count, m)
+    with tracer.wall_span("server.combine", round_id=step):
+        return combine(h, g, delta)
 
 
 def reference_two_loop(s_list, y_list, g):

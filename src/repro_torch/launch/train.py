@@ -21,6 +21,13 @@ shards with one (2m+1)² all-reduce for the Gram (Theorem 3's O(m²)
 exchange) and scalar all-reduces for its norms.  The shape helpers
 (``abstract_params``, ``train_state_shapes``, ``abstract_cache``) build
 meta tensors for the dry run (``launch/dryrun.py``).
+
+``make_train_step(..., tracer=obs.Tracer(wall=True))`` records the step's
+spans (``train.step``; each ``train.cohort`` with its ``train.forward``,
+``train.backward`` and ``train.accumulate``; ``train.means``; ``server``
+with the server step's own spans inside): host intervals, profiler ranges
+and, on the card, device time once the caller has synchronised and called
+``tracer.resolve_device()``.  The default ``NULL_TRACER`` records nothing.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import baselines, fim_lbfgs
 from repro_torch.models import model as zoo
 from repro_torch.models.layers import use_mesh
+from repro_torch.obs import NULL_TRACER
 from repro_torch.utils import sharding as shd
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
@@ -62,7 +70,7 @@ def _check_optimizer(optimizer: str) -> None:
 
 def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
                     n_micro: int = 4, optimizer: str = "fim_lbfgs",
-                    kernels: str = "auto", mesh=None):
+                    kernels: str = "auto", mesh=None, tracer=None):
     """(params, opt_state, batch) -> (params, opt_state, stats).
 
     ``mesh``: a ``DeviceMesh`` with axes among ("pod", "data", "model");
@@ -76,18 +84,28 @@ def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
     updates its buffers in place (``fim_lbfgs.update(..., donate=True)``,
     the counterpart of the reference's donated state), so the caller
     passes the state it got back last time and keeps no other reference
-    to it.  ``params`` are not written; the step returns new ones."""
+    to it.  ``params`` are not written; the step returns new ones.
+
+    ``tracer`` (``obs.NULL_TRACER`` when None): each call is one step of
+    its host counter, its spans named as in the module docstring."""
     _check_optimizer(optimizer)
     ocfg = ocfg._replace(kernels=kernels)
+    tracer = NULL_TRACER if tracer is None else tracer
     accum_dtype = getattr(torch, cfg.grad_accum_dtype)
     layout = (_OneDevice if mesh is None
               else functools.partial(_OnMesh, mesh, zoo.param_axes(cfg)))
 
     @torch.no_grad()
     def train_step(params, opt_state, batch):
+        step = tracer.next_step()
+        leaves = tree_leaves(params)
+        with tracer.wall_span("train.step", round_id=step,
+                              device=leaves[0].device):
+            return _step(params, opt_state, batch, leaves, step)
+
+    def _step(params, opt_state, batch, leaves, step):
         lay = layout(params)
         micro, nm = lay.cohorts(batch, n_micro)
-        leaves = tree_leaves(params)
         # the parameters in the optimizer state's layout (on a mesh a
         # local slice: no traffic), and the sums of the cohorts' gradient
         # and its square there, in the accumulation dtype
@@ -96,22 +114,28 @@ def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
         gsqsum = [torch.zeros_like(a) for a in gsum]
         lsum = None
         for j in range(nm):
-            mb = tree_map(lambda x: x[j], micro)
-            live = [p.detach().requires_grad_() for p in leaves]
-            with torch.enable_grad(), lay.model_context():
-                loss, _ = zoo.loss_fn(tree_unflatten(params, live), cfg, mb)
-                grads = torch.autograd.grad(loss, live)
-            loss = lay.replicate(loss.detach())
-            lsum = loss if lsum is None else lsum + loss
-            for i, (a, q, g) in enumerate(zip(gsum, gsqsum, grads,
-                                              strict=True)):
-                g = lay.to_state(g, i)      # on a mesh, the cohort's reduction
-                a.add_(g)
-                q.add_(torch.square(g.to(q.dtype)))
-            del grads
+            with tracer.wall_span("train.cohort", round_id=step, cohort=j):
+                mb = tree_map(lambda x: x[j], micro)
+                live = [p.detach().requires_grad_() for p in leaves]
+                with torch.enable_grad(), lay.model_context():
+                    with tracer.wall_span("train.forward", round_id=step):
+                        loss, _ = zoo.loss_fn(tree_unflatten(params, live),
+                                              cfg, mb)
+                    with tracer.wall_span("train.backward", round_id=step):
+                        grads = torch.autograd.grad(loss, live)
+                with tracer.wall_span("train.accumulate", round_id=step):
+                    loss = lay.replicate(loss.detach())
+                    lsum = loss if lsum is None else lsum + loss
+                    for i, (a, q, g) in enumerate(zip(gsum, gsqsum, grads,
+                                                      strict=True)):
+                        g = lay.to_state(g, i)  # on a mesh, the cohort's reduction
+                        a.add_(g)
+                        q.add_(torch.square(g.to(q.dtype)))
+                del grads
         # the means, in place: ḡ and Γ̄ = the mean of the cohorts' g²
-        for a in gsum + gsqsum:
-            a.mul_(1.0 / nm)
+        with tracer.wall_span("train.means", round_id=step):
+            for a in gsum + gsqsum:
+                a.mul_(1.0 / nm)
 
         def local(xs):
             return tree_unflatten(params, [lay.local(x) for x in xs])
@@ -119,16 +143,17 @@ def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
         state = tree_map(lay.local, opt_state)
         p_loc, grad, fim_diag = local(p_state), local(gsum), local(gsqsum)
         del gsum, gsqsum
-        if optimizer == "fim_lbfgs":
-            new_p, new_state, stats = fim_lbfgs.update(
-                state, p_loc, grad, fim_diag, ocfg, donate=True,
-                leaf_sum=lay.leaf_sum)
-        elif optimizer == "fedavg_adam":
-            new_p, new_state, stats = baselines.adam_update(
-                state, p_loc, grad, ocfg.learning_rate)
-        else:
-            new_p, new_state, stats = baselines.sgd_update(
-                state, p_loc, grad, ocfg.learning_rate)
+        with tracer.wall_span("server", round_id=step):
+            if optimizer == "fim_lbfgs":
+                new_p, new_state, stats = fim_lbfgs.update(
+                    state, p_loc, grad, fim_diag, ocfg, donate=True,
+                    leaf_sum=lay.leaf_sum, tracer=tracer)
+            elif optimizer == "fedavg_adam":
+                new_p, new_state, stats = baselines.adam_update(
+                    state, p_loc, grad, ocfg.learning_rate)
+            else:
+                new_p, new_state, stats = baselines.sgd_update(
+                    state, p_loc, grad, ocfg.learning_rate)
         new_params = tree_unflatten(params, [
             lay.param_out(t, like, p) for t, like, p in zip(
                 tree_leaves(new_p), p_state, leaves, strict=True)])

@@ -1,5 +1,4 @@
-"""Trace / metrics exporters: JSONL, CSV, Chrome trace-event JSON, and
-the ``BENCH_*.json`` perf-trajectory emitter.
+"""Trace / metrics exporters: JSONL, CSV and Chrome trace-event JSON.
 
   * :func:`to_jsonl` / :func:`parse_jsonl` — a line-per-record log of
     every span, event, per-round record, and structured log entry.  The
@@ -11,16 +10,10 @@ the ``BENCH_*.json`` perf-trajectory emitter.
     for the simulated edge timeline with a thread per client (thread 0
     carries round-level phases), plus an optional wall-clock process.
   * :func:`metrics_to_csv` — the flattened metric points.
-  * :func:`write_bench_json` — one ``BENCH_<name>.json`` per benchmark
-    entrypoint: name, git rev, timestamp, and metric rows, the unit of
-    the tracked perf trajectory (compare files across commits).
 """
 from __future__ import annotations
 
-import datetime
 import json
-import os
-import subprocess
 from typing import Optional
 
 from repro_torch.obs.trace import CAT_WALL, Span, TraceEvent, Tracer, sanitize_float
@@ -187,72 +180,4 @@ def metrics_to_csv(registry) -> str:
 def write_metrics_csv(registry, path: str) -> str:
     with open(path, "w") as f:
         f.write(metrics_to_csv(registry) + "\n")
-    return path
-
-
-# ---------------------------------------------------------------------------
-# BENCH_*.json: the tracked perf trajectory
-# ---------------------------------------------------------------------------
-def _json_default(o):
-    """numpy scalars / arrays and other oddballs -> JSON scalars."""
-    try:
-        import numpy as np
-        if isinstance(o, np.ndarray):
-            return o.tolist()
-        if isinstance(o, np.generic):
-            return o.item()
-    except ImportError:  # pragma: no cover
-        pass
-    try:
-        return float(o)
-    except (TypeError, ValueError):
-        return str(o)
-
-
-def _finite_tree(o):
-    """Recursively stringify non-finite floats (same convention as the
-    JSONL export) so the emitted file is strict JSON — no ``NaN`` /
-    ``Infinity`` literals."""
-    if isinstance(o, dict):
-        return {k: _finite_tree(v) for k, v in o.items()}
-    if isinstance(o, list):
-        return [_finite_tree(v) for v in o]
-    return sanitize_float(o)
-
-
-def git_rev(root: str = ".") -> str:
-    # without this guard, `git rev-parse` walks up from ``root`` and can
-    # report an enclosing checkout's rev for an exported/tarball tree
-    if not os.path.exists(os.path.join(root, ".git")):  # a worktree's .git is a file
-        return "unknown"
-    try:
-        return subprocess.run(
-            ["git", "rev-parse", "--short", "HEAD"], cwd=root,
-            capture_output=True, text=True, timeout=10,
-        ).stdout.strip() or "unknown"
-    except (OSError, subprocess.SubprocessError):
-        return "unknown"
-
-
-def write_bench_json(name: str, rows, header=None, meta: Optional[dict] = None,
-                     root: str = ".") -> str:
-    """Emit ``<root>/BENCH_<name>.json``: the perf-trajectory point for
-    this commit.  ``rows`` is any JSON-serializable list of metric rows
-    (lists paired with ``header``, or self-describing dicts)."""
-    payload = {
-        "name": name,
-        "git_rev": git_rev(root),
-        "timestamp": datetime.datetime.now(datetime.timezone.utc)
-        .isoformat(timespec="seconds"),
-        "header": list(header) if header is not None else None,
-        "rows": _finite_tree(json.loads(json.dumps(rows,
-                                                   default=_json_default))),
-    }
-    if meta:
-        payload["meta"] = _finite_tree(
-            json.loads(json.dumps(meta, default=_json_default)))
-    path = os.path.join(root, f"BENCH_{name}.json")
-    with open(path, "w") as f:
-        json.dump(payload, f, indent=1, sort_keys=True)
-        f.write("\n")
     return path

@@ -5,9 +5,19 @@ and bytes go, and why was client 12 dropped?" without a debugger: every
 round is a span, every selected client gets child spans for
 allocate → compute → uplink → deadline-verdict → aggregate, and the
 async path emits dispatch / land / expiry events.  Span times are
-*simulated seconds* (the edge clock); wall-clock measurements (codec
-encode time, optional ``wall_span`` blocks) live on a separate timeline
-so replays of the same seed stay bit-identical on the sim tracks.
+*simulated seconds* (the edge clock); wall-clock measurements
+(``wall_span`` blocks) live on a separate timeline so replays of the same
+seed stay bit-identical on the sim tracks.
+
+``wall_span`` is also the LLM train step's instrument
+(``launch/train.py``, ``core/fim_lbfgs.py``, ``core/lbfgs.py``): under
+``Tracer(wall=True)`` each block is a ``torch.profiler.record_function``
+range (so a profiler's device trace shows it, on its own clock), a host
+interval with its enclosing span's name as ``args["parent"]``, and, where
+the block is given (or inherits) a CUDA device, a pair of timing events on
+the current stream.  Nothing in a span reads the device or synchronises:
+:meth:`Tracer.resolve_device`, called after the caller's own synchronise,
+turns the pairs into ``args["device_s"]``.
 
 The default everywhere is :data:`NULL_TRACER` — a shared no-op whose
 methods early-out and whose ``metrics`` / ``audit`` are the no-op twins
@@ -20,9 +30,9 @@ summaries, and Chrome trace-event JSON loadable in Perfetto.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 from repro_torch.obs import metrics as _metrics
@@ -46,6 +56,9 @@ LAND = "land"
 EXPIRE = "expire"
 FAULT = "scenario_fault"
 REALLOC = "reallocate"
+
+# what a disabled wall_span returns: one shared, reusable no-op context
+_NULL_SPAN = contextlib.nullcontext()
 
 
 @dataclass(frozen=True)
@@ -90,6 +103,7 @@ class NullTracer:
     without a real tracer attached)."""
 
     enabled = False
+    step = -1           # the host step counter (``next_step``); -1: none
 
     def __init__(self):
         self.metrics = _metrics.NULL_METRICS
@@ -111,10 +125,15 @@ class NullTracer:
         if render:
             print(render_round(rec))
 
-    @contextmanager
     def wall_span(self, name: str, round_id: int = -1, client: int = -1,
-                  **args):
-        yield
+                  device=None, **args):
+        return _NULL_SPAN
+
+    def next_step(self) -> int:
+        return -1
+
+    def resolve_device(self) -> int:
+        return 0
 
 
 NULL_TRACER = NullTracer()
@@ -130,7 +149,10 @@ class Tracer(NullTracer):
     capture them.  ``wall=True`` additionally records ``wall_span``
     context blocks on the host wall-clock timeline (category
     ``CAT_WALL`` — excluded from determinism comparisons by
-    construction, since sim and wall categories never mix).
+    construction, since sim and wall categories never mix), each a
+    ``record_function`` range and, on a CUDA device, a timing-event pair
+    (see the module docstring); ``next_step`` advances the host step
+    counter ``step`` that the train step's spans carry as ``round_id``.
     ``audit_max_rows`` caps :class:`~repro_torch.obs.metrics.PlanAudit` row
     retention for fleet-scale runs (None = exhaustive; totals stay
     exact and shortfall rows are always kept either way)."""
@@ -145,6 +167,9 @@ class Tracer(NullTracer):
         self.records: list[dict] = []   # per-round edge runtime records
         self.logs: list[dict] = []      # per-round driver log records
         self.wall = bool(wall)
+        self.step = -1
+        self._open: list[_WallSpan] = []     # the enclosing wall spans
+        self._pending: list = []              # (args, start, end) events
         self._sink = print if sink is None else sink
         # CAT_WALL epoch: wall measurement is the opt-in exception to
         # the sim-determinism contract
@@ -170,17 +195,28 @@ class Tracer(NullTracer):
         if render:
             self._sink(render_round(rec))
 
-    @contextmanager
     def wall_span(self, name: str, round_id: int = -1, client: int = -1,
-                  **args):
-        t0 = time.perf_counter() - self._wall_epoch  # repro: allow[RPL001]
-        try:
-            yield
-        finally:
-            if self.wall:
-                t1 = time.perf_counter() - self._wall_epoch  # repro: allow[RPL001]
-                self.span(name, CAT_WALL, t0, t1, round_id=round_id,
-                          client=client, **args)
+                  device=None, **args):
+        """A host-clock block (``with tracer.wall_span(...):``), recorded
+        only under ``wall=True``; ``device`` (or the enclosing span's)
+        being CUDA adds the timing-event pair."""
+        if not self.wall:
+            return _NULL_SPAN
+        return _WallSpan(self, name, round_id, client, device, args)
+
+    def next_step(self) -> int:
+        self.step += 1
+        return self.step
+
+    def resolve_device(self) -> int:
+        """Each recorded event pair's elapsed seconds into its span's
+        ``args["device_s"]``; call after a synchronise of the device (an
+        event not yet reached raises).  -> the number of spans resolved."""
+        for args, start, end in self._pending:
+            args["device_s"] = start.elapsed_time(end) / 1e3
+        n = len(self._pending)
+        self._pending.clear()
+        return n
 
     # -- views -----------------------------------------------------------
     def spans_for(self, round_id: int, cat: str = None,
@@ -192,6 +228,55 @@ class Tracer(NullTracer):
 
     def events_named(self, name: str) -> list[TraceEvent]:
         return [e for e in self.events if e.name == name]
+
+
+class _WallSpan:
+    """One enabled ``wall_span`` block: a ``record_function`` range, the
+    host interval on the tracer's wall epoch, and on a CUDA device two
+    timing events recorded on the current stream (no synchronise)."""
+
+    __slots__ = ("tracer", "name", "round_id", "client", "device", "args",
+                 "t0", "range", "start")
+
+    def __init__(self, tracer, name, round_id, client, device, args):
+        self.tracer, self.name = tracer, name
+        self.round_id, self.client, self.args = round_id, client, args
+        self.device = device
+
+    def __enter__(self):
+        import torch
+
+        tr = self.tracer
+        parent = tr._open[-1] if tr._open else None
+        if parent is not None:
+            self.args["parent"] = parent.name
+            if self.device is None:
+                self.device = parent.device
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        tr._open.append(self)
+        self.start = None
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = time.perf_counter() - tr._wall_epoch  # repro: allow[RPL001]
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        tr = self.tracer
+        t1 = time.perf_counter() - tr._wall_epoch  # repro: allow[RPL001]
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            tr._pending.append((self.args, self.start, end))
+        self.range.__exit__(*exc)
+        tr._open.pop()
+        # the span holds self.args itself: resolve_device fills it later
+        tr.spans.append(Span(self.name, CAT_WALL, self.t0, t1,
+                             int(self.round_id), int(self.client), self.args))
+        return False
 
 
 def _jsonable(v) -> bool:
