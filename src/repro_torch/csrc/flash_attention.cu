@@ -20,7 +20,7 @@
 // its (B, S, H, hd) tensors as transposed views without copies; no atomics,
 // so results are deterministic.
 //
-// Bound on the H100: operations.  At granite-8b's prefill (B 2, H 32, KV 8,
+// Bound on the H100 (forward): operations.  At granite-8b's prefill (B 2, H 32, KV 8,
 // S 4096, hd 128, bf16, causal) the live (i, j) pairs need 4 * hd flops
 // each, ~2.75e11 flops a call: 0.28 ms at the 989 TFLOP/s of the bf16
 // tensor cores, against 0.08 ms for its 134 MB of q, k, v and out.
@@ -77,6 +77,54 @@
 //     version on ~10 % of outputs; hi/lo keeps ~16 bits.
 //   * epilogue: O / max(l, 1e-30) in f32, rounded to bf16 once, stored
 //     straight from registers to the rows < S by the output's strides.
+//     Under autograd (flash_attention_bf16_fwd) the same kernel also stores
+//     the f32 output before that rounding and each row's log-sum-exp; the
+//     prefill's instantiation (kSave false) is the body above unchanged.
+//
+// bf16 backward (tc::flash_bwd_dq_kernel, tc::flash_bwd_dkdv_kernel).
+// Replaces no TPU kernel: the reference has no backward for its Pallas
+// kernel and trains through its jnp _chunked_attention, as the port's plain
+// path (models/attention.py) does on the CPU.  Added because that plain path
+// on the card forms each 256-row chunk's full (chunk x S) score block in f32
+// on the CUDA cores, masked but not skipped, forward, remat and backward:
+// ~40 % of granite-8b's 4,096-token train step.
+//   dV = P^T dO, dP = dO V^T, dS = P o (dP - D), dK = scale dS^T Q,
+//   dQ = scale dS K, with P = 2^(S c - lse log2 e) recomputed from q, k and
+//   the forward's lse (the scale applied after the product, as there), and
+//   D = rowsum(dO o O) from the forward's unrounded f32 output (D from the
+//   bf16 output would put a bf16-sized error into every dS where dP ~ D).
+// Bound on the H100: operations.  At granite-8b's train step (B 1, H 32,
+// KV 8, S 4096, hd 128, causal) the 268.5 M live pairs need 8 * hd flops
+// each for dV, dP, dK and dQ: 0.278 ms at 989 TFLOP/s.  The design does 20 *
+// hd a pair (S and dP twice, the f32-held P and dS as two bf16 products
+// each), its own floor 2.5x the bound.
+//   * precision as the plain path's: S, P, dP, dS and D in f32; products of
+//     bf16 operands (q, k, v, dO) are exact in the f32 accumulators; every
+//     f32-held operand (P, dS) enters an MMA as x_hi = bf16(x), x_lo =
+//     bf16(x - x_hi); dq, dk, dv rounded once from f32.
+//   * no atomics, so two runs give the same bits: a dQ pass, one block per
+//     (b * H + h, 128 q rows), over the key tiles the forward visits (64
+//     keys a step; causal tiles above the diagonal and outside the window
+//     skipped), which also writes D; then a dK/dV pass, one block per
+//     (b * KV + kv head, 128 keys), over the q tiles that see those keys (64
+//     rows a step) of each of the G query heads, GQA summed in the f32
+//     accumulators.  Each pass recomputes S and dP.
+//   * the forward's shape: warpgroups 0 and 1 consume 64 rows each,
+//     setmaxnreg 240; one thread of warpgroup 2 issues TMA loads of the
+//     block's two fixed tiles (128 rows) and a two-stage ring of the step's
+//     two tiles (64 rows; the dK/dV pass's with the step's lse and D rows
+//     by a bulk copy).  S and dP by wgmma from shared memory (m64n64, both
+//     K-major); dQ, dK and dV from the fragments in registers (the
+//     accumulator layout of S is the A fragment layout) against an MN-major
+//     tile.  The dQ pass retires a step's dS K with the next step's S and
+//     dP; the dK/dV pass, which holds two accumulators, waits for each
+//     product, so no register of a product in flight is needed for the
+//     softmax (ptxas otherwise serialises its wgmmas; issuing dV and dK
+//     together read 1.50 ms against 1.39).  hd 32 and 80 are padded as
+//     above.
+//   * masks (P = 0) only on tiles that cross the diagonal, the window's
+//     edge or S; lse and D are padded to whole 128-row tiles, so no read
+//     of them is guarded.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -317,6 +365,7 @@ constexpr int kThreads = 384;      // + warpgroup 2, whose thread 256 issues eve
 constexpr int kRowBytes = 128;     // one 128-byte swizzle row: 64 bf16 of a 64-column chunk
 constexpr int kChunkCols = kRowBytes / 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile of `rows` x hdp bf16 in shared memory: hdp / 64 chunks of rows x 64,
 // each chunk rows x 128 bytes in TMA's 128-byte swizzle (the layout wgmma's
@@ -515,11 +564,16 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+// kSave (the forward under autograd): also the f32 output o32, unrounded,
+// and the rows' natural log-sum-exp of the scaled scores, lse[bh * s_pad +
+// row] for every row of the block's tile (rows >= S too, finite: the
+// backward reads whole tiles).  Without it the body is the prefill's.
+template <int HD, bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H,
-                    int KV, int S, int nq, Strides os, int causal, int window, float scale_log2) {
+                    int KV, int S, int nq, Strides os, int causal, int window, float scale_log2,
+                    float* __restrict__ o32, Strides o32s, float* __restrict__ lse, int s_pad) {
   constexpr int HDP = HD <= 64 ? 64 : 128;  // hd padded to whole 64-column chunks
   constexpr int kSteps = (HD + 15) / 16;    // k16 steps of Q.K^T (the padding is skipped)
   using L = Layout<HDP>;
@@ -743,13 +797,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
       lsum = fmaxf(lsum, 1e-30f);
       const int row = row0 + 8 * j;
+      if constexpr (kSave) {
+        if (tid % 4 == 0)
+          lse[static_cast<int64_t>(bh) * s_pad + row] = (m[j] * scale_log2 + log2f(lsum)) * kLn2;
+      }
       if (row < S) {
         __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.s + col;
 #pragma unroll
         for (int n = 0; n < HDP / 8; ++n) {
           if (8 * n < HD) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
-                acc[4 * n + 2 * j] / lsum, acc[4 * n + 2 * j + 1] / lsum);
+            const float x = acc[4 * n + 2 * j] / lsum, y = acc[4 * n + 2 * j + 1] / lsum;
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(x, y);
+            if constexpr (kSave)
+              *reinterpret_cast<float2*>(o32 + b * o32s.b + h * o32s.h + row * o32s.s + col +
+                                         8 * n) = make_float2(x, y);
           }
         }
       }
@@ -802,38 +863,585 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// o32 and lse null: the prefill's kernel; else the forward under autograd,
+// which also writes them (flash_tc_kernel's kSave).  The launches make a
+// runtime call before they encode their maps: it makes the device's primary
+// context current on the calling thread, which cuTensorMapEncodeTiled needs
+// (autograd runs the backward, and a remat's forward, on a thread of its own).
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int S,
-           const int64_t* st, int causal, int window, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* o32, float* lse, int B,
+           int H, int KV, int S, const int64_t* st, int causal, int window, float scale,
+           void* stream) {
   using L = Layout<(HD <= 64 ? 64 : 128)>;
+  const auto kernel = lse == nullptr ? flash_tc_kernel<HD, false> : flash_tc_kernel<HD, true>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mq, mk, mv;
   int rc = make_map(&mq, q, HD, S, H, B, st, kBM);
   if (rc == 0) rc = make_map(&mk, k, HD, S, KV, B, st + 3, kBN);
   if (rc == 0) rc = make_map(&mv, v, HD, S, KV, B, st + 6, kBN);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int nq = (S + kBM - 1) / kBM;
   const Strides os{st[9], st[10], st[11]};
-  flash_tc_kernel<HD><<<static_cast<unsigned int>(nq * B * H), kThreads, L::kBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KV, S, nq, os, causal, window,
-      scale * kLog2e);
+  const Strides o32s = lse == nullptr ? Strides{0, 0, 0} : Strides{st[12], st[13], st[14]};
+  kernel<<<static_cast<unsigned int>(nq * B * H), kThreads, L::kBytes,
+           static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), H,
+                                                KV, S, nq, os, causal, window, scale * kLog2e,
+                                                o32, o32s, lse, nq * kBM);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int S,
-             int hd, const int64_t* strides, int causal, int window, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* o32, float* lse, int B,
+             int H, int KV, int S, int hd, const int64_t* strides, int causal, int window,
+             float scale, void* stream) {
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+      return launch<32>(q, k, v, o, o32, lse, B, H, KV, S, strides, causal, window, scale, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+      return launch<64>(q, k, v, o, o32, lse, B, H, KV, S, strides, causal, window, scale, stream);
     case 80:
-      return launch<80>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+      return launch<80>(q, k, v, o, o32, lse, B, H, KV, S, strides, causal, window, scale, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, KV, S, strides, causal, window, scale, stream);
+      return launch<128>(q, k, v, o, o32, lse, B, H, KV, S, strides, causal, window, scale,
+                         stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward of the bf16 path: dQ, then dK and dV, by wgmma on TMA-fed
+// tiles (see the note at the top of the file).
+// ---------------------------------------------------------------------------
+constexpr int kBwdBlk = 128;   // rows a block owns, 64 per consumer warpgroup
+constexpr int kBwdStep = 64;   // rows of the other side a step brings
+constexpr int kBwdStages = 2;  // ring depth of the step's tiles
+static_assert(kBwdBlk == kBM, "lse and D rows are padded to the forward's q tile");
+
+// Two tiles of kBwdBlk rows loaded once (dQ: Q, dO; dK/dV: K, V), a ring of
+// two tiles of kBwdStep rows a step (dQ: K, V; dK/dV: Q, dO), and for dK/dV
+// the step's lse and D rows beside them, all in TMA's 128-byte swizzle.
+template <int HDP>
+struct BwdLayout {
+  static constexpr int kChunks = HDP / kChunkCols;
+  static constexpr int kFixBytes = kBwdBlk * HDP * 2;
+  static constexpr int kRingBytes = kBwdStep * HDP * 2;
+  static constexpr int kVecBytes = kBwdStep * 4;
+  static constexpr int kF0 = 0;
+  static constexpr int kF1 = kF0 + kFixBytes;
+  static constexpr int kR0 = kF1 + kFixBytes;
+  static constexpr int kR1 = kR0 + kBwdStages * kRingBytes;
+  static constexpr int kLse = kR1 + kBwdStages * kRingBytes;
+  static constexpr int kD = kLse + kBwdStages * kVecBytes;
+  static constexpr int kBar = kD + kBwdStages * kVecBytes;  // 1 + 2 * kBwdStages mbarriers
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kBwdStages) + 1024;
+};
+
+// `bytes` (a multiple of 16) from global memory to shared, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// D(64x64, f32) = A(64x16 bf16, shared, K-major) * B(16x64 bf16, shared, K-major)
+// + D if accumulate
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// x = hi + lo, each bf16 (lo = bf16(x - hi)): the accumulator layout of an
+// m64nN product is the A fragment layout of the next, k16 step kk taking
+// x[8 kk .. 8 kk + 7]
+template <int N>
+__device__ __forceinline__ void split_hi_lo(const float (&x)[N / 2], uint32_t (&hi)[N / 16][4],
+                                            uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], c = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, c);
+      const float2 hf = __bfloat1622float2(h2);
+      hi[kk][r] = bf16x2_bits(h2);
+      lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
+    }
+}
+
+// Is (qpos, kpos) a pair the forward kept?
+__device__ __forceinline__ bool live_pair(int qpos, int kpos, int S, int causal, int window) {
+  bool live = kpos < S && qpos < S;
+  if (causal) live = live && qpos >= kpos;
+  if (window > 0) live = live && kpos > qpos - window;
+  return live;
+}
+
+// One block per (b * H + h, 128-row q tile), heaviest causal tiles first.
+// D = rowsum(dO o O32) of the block's rows first (written out for the dK/dV
+// pass), then over the key tiles the forward visits, 64 keys a step:
+// S = Q K^T and dP = dO V^T (shared x shared), P = 2^(S c - lse log2 e),
+// dS = P o (dP - D), dQ += dS_hi K + dS_lo K (registers x shared, K
+// MN-major); dQ = scale * that, rounded to bf16 once.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __nv_bfloat16* __restrict__ dout, Strides dos,
+                        const float* __restrict__ o32, Strides o32s, const float* __restrict__ lse,
+                        float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, Strides dqs,
+                        int H, int KV, int S, int s_pad, int nq, int causal, int window,
+                        float scale_log2, float scale) {
+  constexpr int HDP = HD <= 64 ? 64 : 128;
+  constexpr int kSteps = (HD + 15) / 16;
+  using L = BwdLayout<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t sQ = base + L::kF0, sO = base + L::kF1, sK = base + L::kR0, sV = base + L::kR1;
+  const uint32_t bar_fix = base + L::kBar;
+  auto bar_full = [&](int st) { return bar_fix + 8 * (1 + st); };
+  auto bar_empty = [&](int st) { return bar_fix + 8 * (1 + kBwdStages + st); };
+
+  const int heads = gridDim.x / nq;  // B * H
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int bh = static_cast<int>(blockIdx.x) % heads;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = iq * kBwdBlk;
+  const int q_last = min(q0 + kBwdBlk, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / kBwdStep;
+  const int n_tiles = k_last / kBwdStep - t_first + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_fix, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(bar_full(st), 1);
+      mbar_init(bar_empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_fix, 2 * L::kFixBytes);
+      for (int c = 0; c < L::kChunks; ++c) {
+        tma_load(sQ + c * kBwdBlk * kRowBytes, &tq, bar_fix, c * kChunkCols, q0, h, b);
+        tma_load(sO + c * kBwdBlk * kRowBytes, &tdo, bar_fix, c * kChunkCols, q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kBwdStages;
+        const int k0 = (t_first + t) * kBwdStep;
+        mbar_wait(bar_empty(st), ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(st), 2 * L::kRingBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(sK + st * L::kRingBytes + c * kBwdStep * kRowBytes, &tk, bar_full(st),
+                   c * kChunkCols, k0, kvh, b);
+          tma_load(sV + st * L::kRingBytes + c * kBwdStep * kRowBytes, &tv, bar_full(st),
+                   c * kChunkCols, k0, kvh, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows q0 + 64 wg ... + 63; thread
+    // (warp w, lane) holds rows r0 = 16 w + lane / 4 and r0 + 8, and in each
+    // 8-column group the columns 2 (lane % 4) and + 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (tid / 32) + (tid % 32) / 4;
+    const int col = 2 * (tid % 4);
+    const uint32_t sQw = sQ + wg * 64 * kRowBytes, sOw = sO + wg * 64 * kRowBytes;
+
+    // D = rowsum(dO o O32) of rows r0 and r0 + 8 in f32, over the row's quad
+    // of threads (0 for rows >= S), and lse log2 e of the same rows
+    float dd[2], l2[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row0 + 8 * j;
+      float sum = 0.f;
+      if (row < S) {
+        const __nv_bfloat16* drow = dout + b * dos.b + h * dos.h + row * dos.s;
+        const float* orow = o32 + b * o32s.b + h * o32s.h + row * o32s.s;
+        for (int c = tid % 4; c < HD / 8; c += 4) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(drow + 8 * c);
+          const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const float4 oa = *reinterpret_cast<const float4*>(orow + 8 * c);
+          const float4 ob = *reinterpret_cast<const float4*>(orow + 8 * c + 4);
+          const float2 e0 = __bfloat1622float2(e[0]), e1 = __bfloat1622float2(e[1]);
+          const float2 e2 = __bfloat1622float2(e[2]), e3 = __bfloat1622float2(e[3]);
+          sum = fmaf(e0.x, oa.x, sum);
+          sum = fmaf(e0.y, oa.y, sum);
+          sum = fmaf(e1.x, oa.z, sum);
+          sum = fmaf(e1.y, oa.w, sum);
+          sum = fmaf(e2.x, ob.x, sum);
+          sum = fmaf(e2.y, ob.y, sum);
+          sum = fmaf(e3.x, ob.z, sum);
+          sum = fmaf(e3.y, ob.w, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      dd[j] = sum;
+      const int64_t at = static_cast<int64_t>(bh) * s_pad + row;
+      if (tid % 4 == 0) dsum[at] = sum;
+      l2[j] = lse[at] * kLog2e;
+    }
+
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    float s[kBwdStep / 2], dp[kBwdStep / 2];
+    uint32_t fhi[kBwdStep / 16][4], flo[kBwdStep / 16][4];
+    mbar_wait(bar_fix, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kBwdStages;
+      const int k0 = (t_first + t) * kBwdStep;
+      const uint32_t sKs = sK + st * L::kRingBytes, sVs = sV + st * L::kRingBytes;
+      mbar_wait(bar_full(st), (t / kBwdStages) & 1);
+      // S = Q K^T and dP = dO V^T, one commit group (both operands K-major);
+      // it also retires the last step's dS K
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(s, desc(sQw + (kk / 4) * kBwdBlk * kRowBytes + off, 16, 1024),
+                     desc(sKs + (kk / 4) * kBwdStep * kRowBytes + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(dp, desc(sOw + (kk / 4) * kBwdBlk * kRowBytes + off, 16, 1024),
+                     desc(sVs + (kk / 4) * kBwdStep * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+      pin(acc);
+      pin(fhi);
+      pin(flo);
+      if (t > 0) mbar_arrive(bar_empty((t - 1) % kBwdStages));
+      const bool edge = wq0 + 64 > S || k0 + kBwdStep > S ||
+                        (causal && k0 + kBwdStep - 1 > wq0) ||
+                        (window > 0 && k0 <= wq0 + 63 - window);
+#pragma unroll
+      for (int i = 0; i < kBwdStep / 2; ++i) {
+        const int j = (i / 2) % 2;
+        float p = ex2(fmaf(s[i], scale_log2, -l2[j]));
+        if (edge && !live_pair(row0 + 8 * j, k0 + 8 * (i / 4) + col + (i % 2), S, causal, window))
+          p = 0.f;
+        s[i] = p * (dp[i] - dd[j]);
+      }
+      split_hi_lo<kBwdStep>(s, fhi, flo);
+      // dQ += dS_hi K + dS_lo K: B = the key tile, MN-major (hd contiguous)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t dk = desc(sKs + kk * 16 * kRowBytes, kBwdStep * kRowBytes, 1024);
+        wgmma_rs<HDP>(acc, fhi[kk], dk);
+        wgmma_rs<HDP>(acc, flo[kk], dk);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    pin(fhi);
+    pin(flo);
+    mbar_arrive(bar_empty((n_tiles - 1) % kBwdStages));
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row0 + 8 * j;
+      if (row < S) {
+        __nv_bfloat16* qrow = dq + b * dqs.b + h * dqs.h + row * dqs.s + col;
+#pragma unroll
+        for (int n = 0; n < HDP / 8; ++n) {
+          if (8 * n < HD) {
+            *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * n) = __floats2bfloat162_rn(
+                acc[4 * n + 2 * j] * scale, acc[4 * n + 2 * j + 1] * scale);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One block per (b * KV + kv head, 128-key tile), the heaviest causal tile
+// (the first) first.  K and V are loaded once; each step brings 64 q rows of
+// one of the G query heads of the KV head, with their lse and D.  In the
+// transposed frame (keys as rows): S^T = K Q^T and dP^T = V dO^T, P^T =
+// 2^(S^T c - lse log2 e), dV += P^T_hi dO + P^T_lo dO, dS^T = P^T o (dP^T -
+// D), dK += dS^T_hi Q + dS^T_lo Q; the G heads summed in the f32
+// accumulators; dK = scale * that and dV rounded to bf16 once.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                          const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                          Strides dks, __nv_bfloat16* __restrict__ dv, Strides dvs, int H, int KV,
+                          int S, int s_pad, int nk, int causal, int window, float scale_log2,
+                          float scale) {
+  constexpr int HDP = HD <= 64 ? 64 : 128;
+  constexpr int kSteps = (HD + 15) / 16;
+  using L = BwdLayout<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base + L::kF0, sV = base + L::kF1, sQ = base + L::kR0, sO = base + L::kR1;
+  const uint32_t sL = base + L::kLse, sD = base + L::kD;
+  const float* lse_s = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+  const float* d_s = reinterpret_cast<const float*>(smem_raw + (sD - raw));
+  const uint32_t bar_fix = base + L::kBar;
+  auto bar_full = [&](int st) { return bar_fix + 8 * (1 + st); };
+  auto bar_empty = [&](int st) { return bar_fix + 8 * (1 + kBwdStages + st); };
+
+  const int groups = gridDim.x / nk;  // B * KV
+  const int it = static_cast<int>(blockIdx.x) / groups;
+  const int bkv = static_cast<int>(blockIdx.x) % groups;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const int G = H / KV;
+  const int k0 = it * kBwdBlk;
+  const int k_last = min(k0 + kBwdBlk, S) - 1;
+  const int q_first = causal ? k0 : 0;
+  const int q_last = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
+  const int t_first = q_first / kBwdStep;
+  const int n_qt = q_last / kBwdStep - t_first + 1;
+  const int n_steps = G * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_fix, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(bar_full(st), 1);
+      mbar_init(bar_empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_fix, 2 * L::kFixBytes);
+      for (int c = 0; c < L::kChunks; ++c) {
+        tma_load(sK + c * kBwdBlk * kRowBytes, &tk, bar_fix, c * kChunkCols, k0, kvh, b);
+        tma_load(sV + c * kBwdBlk * kRowBytes, &tv, bar_fix, c * kChunkCols, k0, kvh, b);
+      }
+      for (int t = 0; t < n_steps; ++t) {
+        const int st = t % kBwdStages;
+        const int h = kvh * G + t / n_qt;
+        const int q0 = (t_first + t % n_qt) * kBwdStep;
+        mbar_wait(bar_empty(st), ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(st), 2 * L::kRingBytes + 2 * L::kVecBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(sQ + st * L::kRingBytes + c * kBwdStep * kRowBytes, &tq, bar_full(st),
+                   c * kChunkCols, q0, h, b);
+          tma_load(sO + st * L::kRingBytes + c * kBwdStep * kRowBytes, &tdo, bar_full(st),
+                   c * kChunkCols, q0, h, b);
+        }
+        const int64_t at = static_cast<int64_t>(b * H + h) * s_pad + q0;
+        bulk_load(sL + st * L::kVecBytes, lse + at, L::kVecBytes, bar_full(st));
+        bulk_load(sD + st * L::kVecBytes, dsum + at, L::kVecBytes, bar_full(st));
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys k0 + 64 wg ... + 63, the rows of the
+    // transposed frame; thread (warp w, lane) holds key rows r0 = 16 w +
+    // lane / 4 and r0 + 8, and in each 8-column group of queries the columns
+    // 2 (lane % 4) and + 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int wk0 = k0 + 64 * wg;
+    const int row0 = wk0 + 16 * (tid / 32) + (tid % 32) / 4;
+    const int col = 2 * (tid % 4);
+    const uint32_t sKw = sK + wg * 64 * kRowBytes, sVw = sV + wg * 64 * kRowBytes;
+
+    float dka[HDP / 2], dva[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) {
+      dka[i] = 0.f;
+      dva[i] = 0.f;
+    }
+    float s[kBwdStep / 2], dp[kBwdStep / 2];
+    uint32_t fhi[kBwdStep / 16][4], flo[kBwdStep / 16][4];
+    mbar_wait(bar_fix, 0);
+    for (int t = 0; t < n_steps; ++t) {
+      const int st = t % kBwdStages;
+      const int q0 = (t_first + t % n_qt) * kBwdStep;
+      const uint32_t sQs = sQ + st * L::kRingBytes, sOs = sO + st * L::kRingBytes;
+      const float* ls = lse_s + st * kBwdStep;
+      const float* ds = d_s + st * kBwdStep;
+      mbar_wait(bar_full(st), (t / kBwdStages) & 1);
+      // S^T = K Q^T and dP^T = V dO^T, one commit group (both operands
+      // K-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(s, desc(sKw + (kk / 4) * kBwdBlk * kRowBytes + off, 16, 1024),
+                     desc(sQs + (kk / 4) * kBwdStep * kRowBytes + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(dp, desc(sVw + (kk / 4) * kBwdBlk * kRowBytes + off, 16, 1024),
+                     desc(sOs + (kk / 4) * kBwdStep * kRowBytes + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+      // P^T = 2^(S^T c - lse log2 e) and dS^T = P^T o (dP^T - D), the
+      // columns being queries; no product is in flight here, so the
+      // registers of s, dp and both accumulators may all be live
+      const bool edge = q0 + kBwdStep > S || wk0 + 64 > S || (causal && q0 < wk0 + 63) ||
+                        (window > 0 && q0 + kBwdStep - 1 >= wk0 + window);
+#pragma unroll
+      for (int i = 0; i < kBwdStep / 2; ++i) {
+        const int qc = 8 * (i / 4) + col + (i % 2);
+        float p = ex2(fmaf(s[i], scale_log2, -ls[qc] * kLog2e));
+        if (edge && !live_pair(q0 + qc, row0 + 8 * ((i / 2) % 2), S, causal, window)) p = 0.f;
+        s[i] = p;
+        dp[i] = p * (dp[i] - ds[qc]);
+      }
+      split_hi_lo<kBwdStep>(s, fhi, flo);
+      // dV += P^T_hi dO + P^T_lo dO: B = the dO tile, MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t dob = desc(sOs + kk * 16 * kRowBytes, kBwdStep * kRowBytes, 1024);
+        wgmma_rs<HDP>(dva, fhi[kk], dob);
+        wgmma_rs<HDP>(dva, flo[kk], dob);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dva);
+      pin(fhi);
+      pin(flo);
+      split_hi_lo<kBwdStep>(dp, fhi, flo);
+      // dK += dS^T_hi Q + dS^T_lo Q: B = the Q tile, MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t qb = desc(sQs + kk * 16 * kRowBytes, kBwdStep * kRowBytes, 1024);
+        wgmma_rs<HDP>(dka, fhi[kk], qb);
+        wgmma_rs<HDP>(dka, flo[kk], qb);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dka);
+      pin(fhi);
+      pin(flo);
+      mbar_arrive(bar_empty(st));
+    }
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row0 + 8 * j;
+      if (row < S) {
+        __nv_bfloat16* krow = dk + b * dks.b + kvh * dks.h + row * dks.s + col;
+        __nv_bfloat16* vrow = dv + b * dvs.b + kvh * dvs.h + row * dvs.s + col;
+#pragma unroll
+        for (int n = 0; n < HDP / 8; ++n) {
+          if (8 * n < HD) {
+            *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n) = __floats2bfloat162_rn(
+                dka[4 * n + 2 * j] * scale, dka[4 * n + 2 * j + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n) =
+                __floats2bfloat162_rn(dva[4 * n + 2 * j], dva[4 * n + 2 * j + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// st: (batch, head, row) element strides of q, k, v, o32, dout, dq, dk, dv
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const float* o32, const void* dout,
+               const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int H, int KV,
+               int S, const int64_t* st, int causal, int window, float scale, void* stream) {
+  using L = BwdLayout<(HD <= 64 ? 64 : 128)>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the dQ pass reads q and dout in boxes of kBwdBlk rows and k, v in
+  // kBwdStep; the dK/dV pass the other way round
+  CUtensorMap fq, fdo, rk, rv, rq, rdo, fk, fv;
+  int rc = make_map(&fq, q, HD, S, H, B, st, kBwdBlk);
+  if (rc == 0) rc = make_map(&fdo, dout, HD, S, H, B, st + 12, kBwdBlk);
+  if (rc == 0) rc = make_map(&rk, k, HD, S, KV, B, st + 3, kBwdStep);
+  if (rc == 0) rc = make_map(&rv, v, HD, S, KV, B, st + 6, kBwdStep);
+  if (rc == 0) rc = make_map(&rq, q, HD, S, H, B, st, kBwdStep);
+  if (rc == 0) rc = make_map(&rdo, dout, HD, S, H, B, st + 12, kBwdStep);
+  if (rc == 0) rc = make_map(&fk, k, HD, S, KV, B, st + 3, kBwdBlk);
+  if (rc == 0) rc = make_map(&fv, v, HD, S, KV, B, st + 6, kBwdBlk);
+  if (rc != 0) return rc;
+  const int nq = (S + kBwdBlk - 1) / kBwdBlk;
+  const int s_pad = nq * kBwdBlk;
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dq_kernel<HD><<<static_cast<unsigned int>(nq * B * H), kThreads, L::kBytes, cs>>>(
+      fq, rk, rv, fdo, static_cast<const __nv_bfloat16*>(dout), Strides{st[12], st[13], st[14]},
+      o32, Strides{st[9], st[10], st[11]}, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+      Strides{st[15], st[16], st[17]}, H, KV, S, s_pad, nq, causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<HD><<<static_cast<unsigned int>(nq * B * KV), kThreads, L::kBytes, cs>>>(
+      rq, fk, fv, rdo, lse, dsum, static_cast<__nv_bfloat16*>(dk), Strides{st[18], st[19], st[20]},
+      static_cast<__nv_bfloat16*>(dv), Strides{st[21], st[22], st[23]}, H, KV, S, s_pad, nq,
+      causal, window, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bwd(const void* q, const void* k, const void* v, const float* o32, const void* dout,
+                 const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int H,
+                 int KV, int S, int hd, const int64_t* st, int causal, int window, float scale,
+                 void* stream) {
+  switch (hd) {
+    case 32:
+      return launch_bwd<32>(q, k, v, o32, dout, lse, dsum, dq, dk, dv, B, H, KV, S, st, causal,
+                            window, scale, stream);
+    case 64:
+      return launch_bwd<64>(q, k, v, o32, dout, lse, dsum, dq, dk, dv, B, H, KV, S, st, causal,
+                            window, scale, stream);
+    case 80:
+      return launch_bwd<80>(q, k, v, o32, dout, lse, dsum, dq, dk, dv, B, H, KV, S, st, causal,
+                            window, scale, stream);
+    case 128:
+      return launch_bwd<128>(q, k, v, o32, dout, lse, dsum, dq, dk, dv, B, H, KV, S, st, causal,
+                             window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -854,5 +1462,31 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int KV, int S, int hd, const int64_t* strides,
                                     int causal, int window, float scale, void* stream) {
-  return tc::dispatch(q, k, v, o, B, H, KV, S, hd, strides, causal, window, scale, stream);
+  return tc::dispatch(q, k, v, o, nullptr, nullptr, B, H, KV, S, hd, strides, causal, window,
+                      scale, stream);
+}
+
+// The forward under autograd: flash_attention_bf16, and also o32, the f32
+// output before its rounding (strides 12..14 of 15), and lse, the rows'
+// natural log-sum-exp of the scaled scores, (B, H, s_pad) f32 contiguous
+// with s_pad = S rounded up to 128.
+extern "C" int flash_attention_bf16_fwd(const void* q, const void* k, const void* v, void* o,
+                                        float* o32, float* lse, int B, int H, int KV, int S, int hd,
+                                        const int64_t* strides, int causal, int window, float scale,
+                                        void* stream) {
+  return tc::dispatch(q, k, v, o, o32, lse, B, H, KV, S, hd, strides, causal, window, scale,
+                      stream);
+}
+
+// The backward: dq, dk, dv (bf16, by their strides) from q, k, v, the
+// forward's o32 and lse, and dout (bf16); dsum, (B, H, s_pad) f32, receives
+// D = rowsum(dout o o32).  strides: 24, (batch, head, row) of q, k, v, o32,
+// dout, dq, dk, dv.  Two launches: dQ (and D), then dK and dV.
+extern "C" int flash_attention_bf16_bwd(const void* q, const void* k, const void* v,
+                                        const float* o32, const void* dout, const float* lse,
+                                        float* dsum, void* dq, void* dk, void* dv, int B, int H,
+                                        int KV, int S, int hd, const int64_t* strides, int causal,
+                                        int window, float scale, void* stream) {
+  return tc::dispatch_bwd(q, k, v, o32, dout, lse, dsum, dq, dk, dv, B, H, KV, S, hd, strides,
+                          causal, window, scale, stream);
 }

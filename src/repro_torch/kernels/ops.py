@@ -173,17 +173,22 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     """(B,H,S,hd) x (B,KV,S,hd) -> (B,H,S,hd): GQA attention with f32
     softmax, causal and sliding-window masks (``window`` 0 = none).
 
-    Forward only, on every path: the kernel has no backward (nor has the
-    reference's Pallas kernel), and its output, written through ctypes,
-    carries no autograd graph.  So it raises when grad mode is on and q, k
-    or v requires grad, rather than return a result that would cut the
-    gradient silently; a loss runs ``models.attention._chunked_attention``."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention is forward only: q, k or v requires grad (a "
-            "loss runs the plain chunked attention; see "
-            "models.attention.attn_apply)")
+    Differentiable on every path; no result is ever cut from autograd.
+    The plain version (``ref.flash_attention_ref``) is differentiated by
+    autograd.  On the kernel path, with grad mode on and q, k or v
+    requiring grad, the bf16 kernel runs forward and backward
+    (``flash_attention._FlashAttention``); inputs its backward does not
+    take (f32, another head dim: ``flash_takes_grad``) raise there, and a
+    model routes them to its plain chunked attention
+    (``models.attention.attn_apply``)."""
     if resolve(mode, q.device) == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_takes_grad(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the flash kernel's backward takes attention on q, k and v
+    of this dtype and head dim (bf16, a head dim the kernels have): where
+    it does not, a model's attention under autograd runs the plain
+    chunked path."""
+    return _fa.backward_takes(dtype, head_dim)

@@ -78,9 +78,11 @@ def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
     (``shard_train_state``) and the batch of ``shard_batch`` (``_OnMesh``
     says what changes; the step's body is the same).
 
-    ``kernels`` is the Gram matrix's kernel mode (``kernels.ops.resolve``):
-    under "auto" on the card each ``fim_lbfgs`` step launches the Gram
-    kernel once.  The step takes ``opt_state`` over: ``fim_lbfgs``
+    ``kernels`` is the step's kernel mode (``kernels.ops.resolve``), for
+    the loss and the server step alike: under "auto" on the card each
+    ``fim_lbfgs`` step launches the Gram kernel once, and a bf16 model's
+    attention runs the flash kernel forward and backward
+    (``models.attention.attn_apply``).  The step takes ``opt_state`` over: ``fim_lbfgs``
     updates its buffers in place (``fim_lbfgs.update(..., donate=True)``,
     the counterpart of the reference's donated state), so the caller
     passes the state it got back last time and keeps no other reference
@@ -120,7 +122,7 @@ def make_train_step(cfg: ArchConfig, ocfg: fim_lbfgs.FimLbfgsConfig,
                 with torch.enable_grad(), lay.model_context():
                     with tracer.wall_span("train.forward", round_id=step):
                         loss, _ = zoo.loss_fn(tree_unflatten(params, live),
-                                              cfg, mb)
+                                              cfg, mb, kernels)
                     with tracer.wall_span("train.backward", round_id=step):
                         grads = torch.autograd.grad(loss, live)
                 with tracer.wall_span("train.accumulate", round_id=step):

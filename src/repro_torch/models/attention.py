@@ -2,14 +2,15 @@
 decode with a ring buffer for the sliding window (port of
 ``repro.models.attention``).
 
-Prefill on a CUDA tensor goes through the hand-written flash kernel
-(``kernels.ops.flash_attention``), which computes the function of the
-reference's q-chunked ``_chunked_attention`` (as the reference's Pallas
-kernel does on the TPU); the chunked plain path runs on the CPU, under
-``kernels="off"``, and under autograd: the kernel has no backward, and the
-reference trains through its jnp ``_chunked_attention`` too.  Decode
-attention is plain PyTorch, as it is plain ``jnp.einsum`` in the
-reference.
+Full-sequence attention on a CUDA tensor goes through the hand-written
+flash kernel (``kernels.ops.flash_attention``), which computes the function
+of the reference's q-chunked ``_chunked_attention`` (as the reference's
+Pallas kernel does on the TPU); under autograd its bf16 backward (the
+reference trains through its jnp ``_chunked_attention``).  The chunked
+plain path is the CPU path and the oracle: it runs on the CPU, under
+``kernels="off"``, on a mesh, and under autograd for inputs the kernel's
+backward does not take (f32, another head dim).  Decode attention is plain
+PyTorch, as it is plain ``jnp.einsum`` in the reference.
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rope, constrain, dense_init,
                                        rms_norm, split_heads)
 from repro_torch.utils import sharding as shd
+
+# attn_apply calls with a gradient flowing that took the plain chunked path
+# (the card tests read it beside flash_attention.BWD_CALLS)
+PLAIN_GRAD_CALLS = 0
 
 
 def attn_init(generator: torch.Generator, cfg, stack: int | None = None) -> dict:
@@ -128,18 +133,28 @@ def _chunked_attention(q, k, v, cfg, positions, causal: bool):
     return torch.stack(outs, dim=1).reshape(B, S, H, hd)
 
 
+def _takes_kernel(q, kernels: str, grad: bool) -> bool:
+    """The flash kernel where ``ops.resolve`` gives "kernel" (a CUDA tensor
+    under "auto"/"on") and q is no DTensor; with a gradient flowing, only
+    where its backward takes the inputs (bf16, a head dim it has)."""
+    if ops.resolve(kernels, q.device) != "kernel" or shd.is_dtensor(q):
+        return False
+    return not grad or ops.flash_takes_grad(q.dtype, q.shape[-1])
+
+
 def attn_apply(p, cfg, x, causal: bool = True, kernels: str = "auto"):
     """Full-sequence attention (train / prefill) at positions 0..S-1.
     ``kernels`` picks the path as ``ops.resolve`` does: the flash kernel on
-    a CUDA tensor under "auto"/"on", the chunked plain path otherwise, and
-    always the plain path when a gradient flows through q, k or v (the
-    kernel is forward only)."""
+    a CUDA tensor under "auto"/"on", forward and, when a gradient flows
+    through q, k or v, backward; the chunked plain path otherwise, on a
+    mesh, and under autograd where the kernel's backward does not take the
+    inputs (``_takes_kernel``)."""
+    global PLAIN_GRAD_CALLS
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if (ops.resolve(kernels, x.device) == "kernel" and not grad
-            and not shd.is_dtensor(q)):
+    if _takes_kernel(q, kernels, grad):
         window = cfg.window if cfg.attn_variant == "sliding_window" else 0
         # (B,S,H,hd) -> (B,H,S,hd) views: the kernel reads them by stride
         # and returns the output in q's memory layout, so the transpose
@@ -149,6 +164,8 @@ def attn_apply(p, cfg, x, causal: bool = True, kernels: str = "auto"):
                                   window=window, mode=kernels).transpose(1, 2)
         out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
     else:
+        if grad:
+            PLAIN_GRAD_CALLS += 1
         # the heads merged where they lie (on a mesh, inside each rank's
         # local attention: DTensor could not split a shard of the merged
         # dim back into heads in the backward)

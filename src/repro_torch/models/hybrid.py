@@ -9,8 +9,9 @@ mm blocks and ``(P, ...)`` for the ma block; Python loops over periods and
 blocks take the place of its nested ``lax.scan``, and under autograd with
 ``cfg.remat`` each mm block and each period is recomputed in the backward
 (nested ``torch.utils.checkpoint``, the reference's nested
-``jax.checkpoint``).  Prefill attention runs the flash kernel on the card
-(``attention.attn_apply``); the loss runs the plain path.
+``jax.checkpoint``).  Attention runs the flash kernel on the card, in the
+loss forward and backward where the kernel's backward takes the inputs
+(``attention.attn_apply``).
 """
 from __future__ import annotations
 
@@ -133,11 +134,11 @@ def forward(params, cfg, tokens, kernels: str = "auto"):
     return rms_norm(x, params["final_ln"]), aux
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, kernels: str = "auto"):
     """Next-token LM loss plus ``router_aux_coef`` times the aux loss, as
-    ``transformer.lm_loss``; attention runs the plain path."""
+    ``transformer.lm_loss``; ``kernels`` is the attention's kernel mode."""
     tokens = batch["tokens"]
-    hidden, aux = forward(params, cfg, tokens, kernels="off")
+    hidden, aux = forward(params, cfg, tokens, kernels=kernels)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:]),
                       torch.zeros_like(tokens[:, :1])], dim=1).float()

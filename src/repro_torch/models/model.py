@@ -2,7 +2,7 @@
 ``repro.models.model``):
 
     init(cfg, generator, device)    -> params
-    loss_fn(params, cfg, batch)     -> (scalar, metrics)      [train]
+    loss_fn(params, cfg, batch[, kernels]) -> (scalar, metrics) [train]
     prefill_fn(params, cfg, batch)  -> last-position logits   [prefill]
     init_cache(cfg, B, ctx, device) -> cache                  [decode]
     decode_fn(params, cfg, c, t)    -> (logits, cache)
@@ -55,13 +55,14 @@ def cache_axes(cfg: ArchConfig):
     return (hybrid if is_hybrid(cfg) else transformer).cache_axes(cfg)
 
 
-def loss_fn(params, cfg: ArchConfig, batch):
+def loss_fn(params, cfg: ArchConfig, batch, kernels: str = "auto"):
     """(loss, {"ce", "aux"}): ``transformer.encoder_loss`` for an encoder,
     else the next-token ``lm_loss`` (the hybrid's for Jamba), the MoE aux
-    loss weighted by ``router_aux_coef``; attention runs the plain path."""
+    loss weighted by ``router_aux_coef``; ``kernels`` is the attention's
+    kernel mode (``attention.attn_apply``)."""
     if is_hybrid(cfg):
-        return hybrid.lm_loss(params, cfg, batch)
-    return transformer.loss_fn(params, cfg, batch)
+        return hybrid.lm_loss(params, cfg, batch, kernels)
+    return transformer.loss_fn(params, cfg, batch, kernels)
 
 
 def forward(params, cfg: ArchConfig, inputs, kernels: str = "auto"):

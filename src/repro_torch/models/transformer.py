@@ -137,8 +137,9 @@ def forward(params, cfg, inputs, kernels: str = "auto"):
     """inputs: (B,S) int tokens, or (B,S,d) embeddings for audio, at
     positions 0..S-1.  Returns (hidden (B,S,d), total_aux_loss), the
     layers' MoE aux losses summed in f32 (0 without MoE).  ``kernels`` is
-    the attention's kernel mode (``kernels.ops.resolve``; attention that a
-    gradient flows through runs the plain path whatever it says).  With
+    the attention's kernel mode (``kernels.ops.resolve``; under autograd
+    the flash kernel's backward runs where it takes the inputs, see
+    ``attention.attn_apply``).  With
     ``cfg.remat`` and grad mode on, each layer keeps only its input for
     the backward and is run again there."""
     x = embed_inputs(params, cfg, inputs)
@@ -188,12 +189,13 @@ def _chunked_ce(params, cfg, hidden, labels, mask):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, kernels: str = "auto"):
     """Next-token LM loss.  batch: {"tokens": (B,S)}.  The labels roll the
-    first token to the end, where the mask drops it.  Attention runs the
-    plain path (the kernel has no backward)."""
+    first token to the end, where the mask drops it.  ``kernels`` is the
+    attention's kernel mode, as ``forward``'s: on the card a bf16 model's
+    attention runs the flash kernel forward and backward."""
     tokens = batch["tokens"]
-    hidden, aux = forward(params, cfg, tokens, kernels="off")
+    hidden, aux = forward(params, cfg, tokens, kernels=kernels)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:]),
                       torch.zeros_like(tokens[:, :1])], dim=1).float()
@@ -201,12 +203,12 @@ def lm_loss(params, cfg, batch):
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
-def encoder_loss(params, cfg, batch):
+def encoder_loss(params, cfg, batch, kernels: str = "auto"):
     """Masked-unit prediction (hubert-style): per-frame classification.
     batch: {"features": (B,S,d), "labels": (B,S)} (+ an optional f32
-    "mask")."""
+    "mask").  ``kernels``: the attention's kernel mode, as ``forward``'s."""
     feats, labels = batch["features"], batch["labels"]
-    hidden, aux = forward(params, cfg, feats, kernels="off")
+    hidden, aux = forward(params, cfg, feats, kernels=kernels)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
@@ -215,9 +217,9 @@ def encoder_loss(params, cfg, batch):
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
-def loss_fn(params, cfg, batch):
-    return (encoder_loss(params, cfg, batch) if cfg.is_encoder
-            else lm_loss(params, cfg, batch))
+def loss_fn(params, cfg, batch, kernels: str = "auto"):
+    return (encoder_loss(params, cfg, batch, kernels) if cfg.is_encoder
+            else lm_loss(params, cfg, batch, kernels))
 
 
 # ---------------------------------------------------------------------------

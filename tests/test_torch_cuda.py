@@ -309,16 +309,24 @@ def test_gram_bf16_misaligned_bases_and_groups(cuda):
 
 
 def test_flash_attention_refuses_inputs_that_require_grad(cuda):
-    """The kernel has no backward: with grad mode on and an input that
-    requires grad the wrapper raises instead of returning a result with no
-    graph; under no_grad, or with plain inputs, it runs."""
-    q, k, v = _qkv(cuda, 1, 4, 2, 128, 64, torch.bfloat16, 3)
-    with pytest.raises(RuntimeError, match="forward only"):
+    """No result is ever cut from autograd.  With grad mode on and an input
+    that requires grad, f32 inputs (which the backward does not take) still
+    raise on the kernel route; bf16 runs forward and backward, the output
+    carrying the kernel's backward (one call) and equal bit for bit to the
+    no_grad forward's; under no_grad nothing is recorded."""
+    q, k, v = _qkv(cuda, 1, 4, 2, 128, 64, torch.float32, 3)
+    with pytest.raises(RuntimeError, match="no backward"):
         ops.flash_attention(q.requires_grad_(), k, v, mode="on")
+    q, k, v = _qkv(cuda, 1, 4, 2, 128, 64, torch.bfloat16, 3)
     with torch.no_grad():
-        out = ops.flash_attention(q, k, v, mode="on")
-    assert not out.requires_grad
-    assert torch.equal(out, ops.flash_attention(q.detach(), k, v, mode="on"))
+        plain = ops.flash_attention(q.requires_grad_(), k, v, mode="on")
+    assert not plain.requires_grad
+    before = flash_attention.BWD_CALLS
+    out = ops.flash_attention(q, k, v, mode="on")
+    assert out.grad_fn is not None and torch.equal(out, plain)
+    (dq,) = torch.autograd.grad(out.float().square().sum(), [q])
+    assert flash_attention.BWD_CALLS == before + 1
+    assert dq.dtype == torch.bfloat16 and float(dq.abs().max()) > 0
 
 
 def test_llm_train_step_kernels_auto_beside_off(cuda):
@@ -329,7 +337,8 @@ def test_llm_train_step_kernels_auto_beside_off(cuda):
     gives the steepest-descent direction whatever the Gram reads); later
     steps differ only by the Gram's f32 summation order: losses within
     1e-5 and dir_norm within 1e-4 relative.  The attention gradients are
-    non-zero (the loss runs the plain attention)."""
+    non-zero (an f32 model's loss runs the plain attention: the kernel's
+    backward takes bf16)."""
     from repro_torch.configs import granite_8b
     from repro_torch.data.synthetic import zipf_tokens
     from repro_torch.launch import train

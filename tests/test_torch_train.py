@@ -309,19 +309,37 @@ def test_remat_equals_no_remat(arch):
 
 
 def test_flash_attention_refuses_grad_and_the_loss_trains_attention():
-    """ops.flash_attention never returns a result cut from autograd: with
-    grad mode on and an input that requires grad it raises on every path.
-    The loss runs the plain attention whatever the kernels knob says, so
-    its attention gradients equal the kernels="off" forward's and are not
-    zero."""
-    q = torch.randn((1, 4, 16, 32), requires_grad=True)
-    k, v = torch.randn((1, 2, 16, 32)), torch.randn((1, 2, 16, 32))
-    for mode in ("auto", "off"):
-        with pytest.raises(RuntimeError, match="forward only"):
-            ops.flash_attention(q, k, v, mode=mode)
-    with torch.no_grad():
-        ops.flash_attention(q, k, v, mode="auto")
+    """ops.flash_attention never returns a result cut from autograd: on the
+    plain route (CPU, "auto" or "off") the result carries its graph, and its
+    gradients are the chunked attention's (the oracle) within f32 rounding.
+    The kernel wrapper refuses what it cannot run (CPU tensors) rather
+    than fall back.  The loss trains attention whatever the kernels knob
+    says: its attention gradients under "auto" equal the kernels="off"
+    forward's on the CPU and are not zero."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((1, 4, 16, 32), generator=gen)
+    k, v = torch.randn((1, 2, 16, 32), generator=gen), torch.randn(
+        (1, 2, 16, 32), generator=gen)
+    w = torch.randn((1, 4, 16, 32), generator=gen)
     cfg, _ = _configs("granite-8b")
+    cfg = cfg.replace(num_heads=4, num_kv_heads=2, head_dim=32, attn_q_chunk=8)
+    for mode in ("auto", "off"):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*qkv, mode=mode)
+        assert out.requires_grad and out.grad_fn is not None
+        got = torch.autograd.grad((out * w).sum(), qkv)
+        ins = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+        want_out = attention._chunked_attention(*ins, cfg, torch.arange(16),
+                                                True)
+        want = torch.autograd.grad((want_out * w.transpose(1, 2)).sum(), ins)
+        for g, x in zip(got, want):
+            torch.testing.assert_close(g, x.transpose(1, 2), rtol=1e-5,
+                                       atol=1e-6)
+            assert float(g.abs().max()) > 0
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q.requires_grad_(), k, v)
     params = model.init(cfg, torch.Generator().manual_seed(2), device="cpu")
     toks = torch.from_numpy(zipf_tokens(2, 32, cfg.vocab_size, seed=2))
     grads = []
@@ -333,6 +351,117 @@ def test_flash_attention_refuses_grad_and_the_loss_trains_attention():
         grads.append(torch.autograd.grad(hidden.square().mean(), [wq])[0])
     assert torch.equal(grads[0], grads[1])
     assert float(grads[0].abs().max()) > 0
+
+
+# attn_apply's route: (dtype, head dim, DTensor q, kernels mode, grad mode)
+# -> the flash kernel or the plain chunked path, with ops.resolve answering
+# "kernel" for "auto"/"on" as on a CUDA tensor
+ROUTES = [("bfloat16", 32, False, "auto", True, "kernel"),
+          ("bfloat16", 32, False, "on", True, "kernel"),
+          ("bfloat16", 32, False, "auto", False, "kernel"),
+          ("float32", 32, False, "auto", True, "plain"),
+          ("float32", 32, False, "auto", False, "kernel"),
+          ("bfloat16", 96, False, "auto", True, "plain"),
+          ("bfloat16", 32, True, "auto", True, "plain"),
+          ("bfloat16", 32, True, "auto", False, "plain"),
+          ("bfloat16", 32, False, "off", True, "plain"),
+          ("bfloat16", 32, False, "off", False, "plain")]
+
+
+@pytest.mark.parametrize("dtype,hd,dtensor,mode,grad,path", ROUTES)
+def test_attn_apply_route(monkeypatch, dtype, hd, dtensor, mode, grad, path):
+    """attn_apply takes the flash kernel where ops.resolve gives "kernel",
+    q is no DTensor and, with a gradient flowing, the kernel's backward
+    takes the inputs (bf16, a head dim in HEAD_DIMS); otherwise the
+    plain chunked path, counted in PLAIN_GRAD_CALLS when a gradient flows.
+    Both give the same values here (the kernel stands in as the plain
+    version)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    calls = []
+    monkeypatch.setattr(ops, "resolve",
+                        lambda m, d: "plain" if m == "off" else "kernel")
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, causal, window, mode: calls.append(
+                            mode) or ref.flash_attention_ref(q, k, v, causal,
+                                                             window))
+    monkeypatch.setattr(attention.shd, "is_dtensor", lambda t: dtensor)
+    monkeypatch.setattr(attention, "_on_local_heads",
+                        lambda fn, q, k, v: fn(q, k, v))
+    cfg, _ = _configs("granite-8b")
+    cfg = cfg.replace(num_heads=4, num_kv_heads=2, head_dim=hd, d_model=64,
+                      dtype=dtype, attn_q_chunk=8)
+    p = attention.attn_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((1, 16, 64), generator=torch.Generator().manual_seed(1)
+                    ).to(cfg.activation_dtype).requires_grad_(grad)
+    before = attention.PLAIN_GRAD_CALLS
+    with torch.set_grad_enabled(grad):
+        out = attention.attn_apply(p, cfg, x, True, mode)
+    assert calls == ([mode] if path == "kernel" else [])
+    assert attention.PLAIN_GRAD_CALLS - before == int(path == "plain" and grad)
+    assert out.requires_grad == grad
+    assert out.shape == x.shape
+
+
+@pytest.mark.parametrize("takes", [True, False])
+def test_attn_apply_route_asks_ops_whether_the_backward_takes(monkeypatch,
+                                                              takes):
+    """Under autograd attn_apply asks ``ops.flash_takes_grad`` (the one
+    owner of that choice) with q's dtype and head dim, and takes the plain
+    chunked path where it says no."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    asked, calls = [], []
+    monkeypatch.setattr(ops, "resolve", lambda m, d: "kernel")
+    monkeypatch.setattr(ops, "flash_takes_grad",
+                        lambda dtype, hd: asked.append((dtype, hd)) or takes)
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, causal, window, mode: calls.append(
+                            mode) or ref.flash_attention_ref(q, k, v, causal,
+                                                             window))
+    cfg, _ = _configs("granite-8b")
+    cfg = cfg.replace(num_heads=4, num_kv_heads=2, head_dim=32, d_model=64,
+                      dtype="bfloat16", attn_q_chunk=8)
+    p = attention.attn_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((1, 16, 64), generator=torch.Generator().manual_seed(1)
+                    ).bfloat16().requires_grad_()
+    before = attention.PLAIN_GRAD_CALLS
+    out = attention.attn_apply(p, cfg, x, True, "auto")
+    assert asked == [(torch.bfloat16, 32)]
+    assert calls == (["auto"] if takes else [])
+    assert attention.PLAIN_GRAD_CALLS - before == int(not takes)
+    assert out.requires_grad
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "hubert-xlarge"])
+@pytest.mark.parametrize("mode", ["auto", "off"])
+def test_train_step_loss_takes_the_step_kernels(monkeypatch, arch, mode):
+    """make_train_step's ``kernels`` reaches the loss and every attention
+    layer of the forward (and model.loss_fn passes its own through): the
+    losses no longer pin kernels="off"."""
+    from repro_torch.models import attention
+    seen = []
+    real = attention.attn_apply
+
+    def spy(p, cfg, x, causal=True, kernels="auto"):
+        seen.append(kernels)
+        return real(p, cfg, x, causal, kernels)
+
+    monkeypatch.setattr(attention, "attn_apply", spy)
+    cfg, _ = _configs(arch)
+    _, batch = _batch(cfg, 2, 32, seed=3)
+    ocfg = train.opt_config(cfg)
+    params, opt = train.init_train_state(
+        cfg, ocfg, torch.Generator().manual_seed(0), "fedavg_sgd",
+        device="cpu")
+    step = train.make_train_step(cfg, ocfg, n_micro=2, optimizer="fedavg_sgd",
+                                 kernels=mode)
+    _, _, stats = step(params, opt, batch)
+    assert np.isfinite(float(stats["loss"]))
+    assert seen and set(seen) == {mode}
+    seen.clear()
+    model.loss_fn(params, cfg, batch, kernels=mode)
+    assert len(seen) == cfg.num_layers and set(seen) == {mode}
 
 
 # ---------------------------------------------------------------- train step

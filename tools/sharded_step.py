@@ -14,8 +14,9 @@ largest over the ranks), and for the sharded run its collectives by kind
 (count and operand bytes on rank 0, ``launch/cost.CostCounter``) and its
 (2m+1)^2 f32 all-reduces; last the sharded run's loss and ``dir_norm``
 relative to the unsharded one's and each param leaf's error relative to
-its norm.  Tensor parallelism sums each matmul in another order, so the
-two runs are not expected to agree bit for bit.  ``--device cpu`` runs gloo
+its norm.  Tensor parallelism sums each matmul in another order, and the
+unsharded step's attention runs the flash kernel where the mesh's runs the
+plain chunked path, so the two runs are not expected to agree bit for bit.  ``--device cpu`` runs gloo
 processes (a rehearsal; its seconds mean nothing).
 """
 from __future__ import annotations
